@@ -1,0 +1,31 @@
+"""gf_orb_slam_tpu_torch — the PyTorch / CUDA port of gf_orb_slam_tpu.
+
+The per-frame WORKING-state tracking path (ORB extraction → motion-model
+tracking → Good-Feature selection → local-map tracking) as plain functions on
+torch tensors, with the Hamming distance matrix as a hand-written CUDA kernel
+for Hopper (kernels/hamming.py, csrc/hamming.cu). The JAX package is the
+reference each module is tested against; this package never imports it.
+
+Layout mirrors the reference:
+  geometry/   quaternions, SE(3), pinhole camera, PWLS state, small linalg
+  ops/        pyramid, FAST, ORB, Hamming matching
+  kernels/    CUDA kernel wrappers and their nvcc build (sources in csrc/)
+  gf/         measurement Jacobians, Max-logDet greedy selection
+  solvers/    pose-only Levenberg–Marquardt
+  mapping/    MapState (read side), FrameData
+  pipeline/   track view, per-frame tracking
+  io_utils/   reading the reference's map snapshots and fixtures
+
+Descriptors are (·, 8) int32 bit views of the reference's uint32 words.
+"""
+
+__version__ = "0.1.0"
+
+import torch as _torch
+
+# Full-f32 matmuls and convolutions: the estimation stack (pose LM normal
+# equations, GF information matrices) loses accuracy at reduced precision,
+# as the reference documents for bf16 Hessians (gf_orb_slam_tpu/__init__.py).
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+_torch.set_float32_matmul_precision("highest")

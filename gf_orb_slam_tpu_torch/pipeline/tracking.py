@@ -1,0 +1,353 @@
+"""Per-frame tracking (port of gf_orb_slam_tpu/pipeline/tracking.py):
+motion-model tracking, local-map tracking with optional Good-Feature
+selection in "subset" mode, and the fused WORKING-state step.
+
+The reference's `mode="drop"` scatters (index N or P = drop) become writes
+into an N+1 (P+1) buffer whose last slot is cut off; every gather index is
+clamped as the reference clamps it (torch raises on out-of-range reads).
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+from typing import NamedTuple
+
+import torch
+
+from gf_orb_slam_tpu_torch.geometry import pwls, se3
+from gf_orb_slam_tpu_torch.geometry.camera import CameraModel, project
+from gf_orb_slam_tpu_torch.gf import observability, selection
+from gf_orb_slam_tpu_torch.mapping import map_state as ms
+from gf_orb_slam_tpu_torch.mapping.frame import FrameData, make_frame
+from gf_orb_slam_tpu_torch.ops import matching
+from gf_orb_slam_tpu_torch.pipeline.track_view import TrackView
+from gf_orb_slam_tpu_torch.solvers import pose_opt
+
+NO_POINT = ms.NO_POINT
+
+# GF modes of the reference that this package does not run yet, with the
+# ROADMAP item that ports each.
+_UNPORTED_GF_MODES = {
+    "hybrid": "ROADMAP A17 (observability.hybrid_factors, pwls.f_matrix)",
+    "lazier": "ROADMAP A17 (selection.lazier_greedy_maxlogdet)",
+    "auto": "ROADMAP A17 (selection.auto_maxlogdet)",
+    "active": "ROADMAP A17 (gf/active_matching.py)",
+    "random": "ROADMAP A17 (random baseline)",
+    "longlive": "ROADMAP A17 (longlive baseline)",
+}
+
+
+class TrackResult(NamedTuple):
+    pose: torch.Tensor       # (7,) refined T_cw
+    obs_point: torch.Tensor  # (N,) map-point id per keypoint (post-opt inliers)
+    n_matches: torch.Tensor  # () int32 — tentative matches fed to the optimizer
+    n_inliers: torch.Tensor  # () int32
+    ok: torch.Tensor         # () bool
+
+
+class _LevelConsts(NamedTuple):
+    sigma2: torch.Tensor  # (L,) scale^(2l)
+    sf: torch.Tensor      # (L,) scale^l
+    log_s: torch.Tensor   # () log(scale) in float32
+
+
+@lru_cache(maxsize=None)
+def _level_consts(scale: float, n_levels: int, device: torch.device) -> _LevelConsts:
+    # Cached per device: a host→device copy synchronises the stream, so the
+    # step must not make one per frame.
+    f32 = dict(dtype=torch.float32, device=device)
+    return _LevelConsts(
+        sigma2=torch.tensor([scale ** (2 * i) for i in range(n_levels)], **f32),
+        sf=torch.tensor([scale**i for i in range(n_levels)], **f32),
+        log_s=torch.log(torch.tensor(scale, **f32)),
+    )
+
+
+def _predict_octave(dist, max_dist, scale: float, n_levels: int):
+    """Pyramid level predicted from the distance ratio (MapPoint::PredictScale)."""
+    ratio = torch.clamp(max_dist / torch.clamp(dist, min=1e-9), min=1e-9)
+    log_s = _level_consts(scale, n_levels, dist.device).log_s
+    return torch.clamp(torch.ceil(torch.log(ratio) / log_s).to(torch.int32), 0, n_levels - 1)
+
+
+def _scatter_ids(n: int, hit: torch.Tensor, slot: torch.Tensor, ids: torch.Tensor,
+                 base: torch.Tensor | None = None) -> torch.Tensor:
+    """(n,) int32: `base` (or NO_POINT) with ids[j] written at slot[j] where hit[j]."""
+    out = torch.full((n + 1,), NO_POINT, dtype=torch.int32, device=slot.device)
+    if base is not None:
+        out[:n] = base
+    out[torch.where(hit, slot.long(), n)] = torch.where(hit, ids, 0).to(torch.int32)
+    return out[:n]
+
+
+def _scatter_mask(n: int, hit: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
+    """(n,) bool, True at slot[j] where hit[j]."""
+    out = torch.zeros(n + 1, dtype=torch.bool, device=slot.device)
+    # index_fill_ takes the scalar as a kernel argument; `out[idx] = True`
+    # copies it to the device first, which synchronises the stream.
+    return out.index_fill_(0, torch.where(hit, slot.long(), n), True)[:n]
+
+
+def track_with_motion_model(
+    cam: CameraModel,
+    m: ms.MapState,
+    frame: FrameData,
+    pose_pred: torch.Tensor,
+    last_obs_point: torch.Tensor,   # (N,) point ids matched in the previous frame
+    last_uv: torch.Tensor,          # (N, 2) their pixel locations last frame
+    scale: float = 1.2,
+    n_levels: int = 8,
+    radius: float = 15.0,
+    min_inliers: int = 10,
+) -> TrackResult:
+    """Project last frame's map points through the predicted pose, search
+    ±radius (octave-scaled), pose-optimize, drop outliers."""
+    N = frame.capacity
+    lc = _level_consts(scale, n_levels, pose_pred.device)
+    lp = torch.clamp(last_obs_point, min=0).long()
+    has_pt = (last_obs_point >= 0) & m.pt_valid[lp]
+    pts = m.pt_pos[lp]
+
+    xc = se3.transform_point(pose_pred, pts)
+    uv_proj, _, front = project(cam, xc)
+    proj_ok = has_pt & front
+
+    center = se3.pose_t(se3.inverse(pose_pred))
+    pred_oct = _predict_octave(
+        torch.linalg.vector_norm(pts - center[None, :], dim=-1), m.pt_max_dist[lp], scale, n_levels
+    )
+    rad = radius * lc.sf[pred_oct.long()]
+
+    pmask = matching.projection_mask(uv_proj, proj_ok, frame.uv, frame.octave, frame.valid, rad, pred_oct)
+    res = matching.match(m.pt_desc[lp], frame.desc, pmask, max_dist=matching.TH_HIGH, ratio=0.9, mutual=True)
+    hit = res.matched & proj_ok
+
+    obs = _scatter_ids(N, hit, res.idx, last_obs_point)
+    n_matches = (obs >= 0).sum(dtype=torch.int32)
+
+    op = torch.clamp(obs, min=0).long()
+    sigma2 = lc.sigma2[frame.octave.long()]
+    result = pose_opt.optimize_pose(cam, pose_pred, m.pt_pos[op], frame.uv, 1.0 / sigma2, obs >= 0)
+    obs_final = torch.where(result.inliers, obs, NO_POINT)
+    ok = (n_matches >= 20) & (result.n_inliers >= min_inliers)
+    return TrackResult(
+        pose=result.pose, obs_point=obs_final, n_matches=n_matches,
+        n_inliers=result.n_inliers, ok=ok,
+    )
+
+
+class LocalMapTrackResult(NamedTuple):
+    pose: torch.Tensor
+    obs_point: torch.Tensor
+    n_inliers: torch.Tensor
+    ok: torch.Tensor
+    local_points: torch.Tensor    # (P,) bool — the local map used
+    gf_selected: torch.Tensor     # (P,) bool — GF-selected subset (all False if off)
+    visible_points: torch.Tensor  # (P,) bool — frustum-visible this frame
+    found_points: torch.Tensor    # (P,) bool — matched this frame
+    n_total: torch.Tensor         # () int32 — inliers + deferred matches
+
+
+def track_local_map(
+    cam: CameraModel,
+    m: ms.MapState,
+    view: TrackView,
+    frame: FrameData,
+    pose: torch.Tensor,
+    obs_point: torch.Tensor,   # (N,) current matches from initial tracking (global ids)
+    Xv: torch.Tensor,          # (13,) PWLS state for GF Jacobians
+    gf_key: torch.Tensor | None = None,
+    scale: float = 1.2,
+    n_levels: int = 8,
+    radius: float = 3.0,
+    min_inliers: int = 15,
+    gf_budget: int = 100,
+    use_gf: bool = False,
+    gf_mode: str = "subset",
+    gf_batch: int = 1,
+) -> LocalMapTrackResult:
+    """Frustum-filter the view's candidates, optionally pick the GF subset by
+    greedy Max-logDet (seeded with the current matches' information), match
+    all visible candidates by projection, optimize the pose over the matches
+    of selected candidates, then merge the deferred (unselected) matches that
+    pass the χ² gate at the refined pose. `gf_key` is unused by the ported
+    modes (the reference's random modes draw from it)."""
+    if use_gf and gf_mode != "subset":
+        if gf_mode in _UNPORTED_GF_MODES:
+            raise NotImplementedError(f"gf_mode={gf_mode!r} is not ported yet: {_UNPORTED_GF_MODES[gf_mode]}")
+        raise ValueError(f"unknown gf_mode {gf_mode!r}")
+    N = frame.capacity
+    P = m.pt_capacity
+    lc = _level_consts(scale, n_levels, pose.device)
+    safe_ids = torch.clamp(view.ids, max=P - 1).long()
+
+    pos_v = m.pt_pos[safe_ids]
+    valid_v = view.valid & m.pt_valid[safe_ids]
+
+    # Exclude candidates already matched by the initial tracking stage.
+    cur_mask = _scatter_mask(P, obs_point >= 0, obs_point)
+    search_v = valid_v & ~cur_mask[safe_ids]
+
+    # --- frustum check over the view ---
+    xc = se3.transform_point(pose, pos_v)
+    uv_proj, _, front = project(cam, xc)
+    center = se3.pose_t(se3.inverse(pose))
+    vec = pos_v - center[None, :]
+    dist = torch.linalg.vector_norm(vec, dim=-1)
+    cos_view = torch.sum(vec * view.normal, dim=-1) / torch.clamp(dist, min=1e-9)
+    in_img = (
+        (uv_proj[:, 0] >= 0) & (uv_proj[:, 0] < cam.width)
+        & (uv_proj[:, 1] >= 0) & (uv_proj[:, 1] < cam.height)
+    )
+    in_range = (dist >= view.min_dist) & (dist <= view.max_dist)
+    visible = search_v & front & in_img & in_range & (cos_view > 0.5)
+
+    pred_oct = _predict_octave(dist, view.max_dist, scale, n_levels)
+    lvl_sigma2 = lc.sigma2
+
+    # --- budgeted GF selection over the visible candidates ---
+    if use_gf:
+        jac = observability.measurement_jacobians(cam, Xv, pos_v)
+        H_w = observability.whiten(jac.H, lvl_sigma2[pred_oct.long()])
+        factors = torch.where((jac.visible & valid_v)[:, None, None], H_w, 0.0)
+        # Info prior from the initial-tracking matches, whitened at their
+        # keypoints' octaves.
+        op0 = torch.clamp(obs_point, min=0).long()
+        jac_cur = observability.measurement_jacobians(cam, Xv, m.pt_pos[op0])
+        Hc = observability.whiten(jac_cur.H, lvl_sigma2[frame.octave.long()])
+        Hc = torch.where((jac_cur.visible & (obs_point >= 0))[:, None, None], Hc, 0.0)
+        info_prior7 = torch.einsum("nri,nrj->ij", Hc, Hc)
+        sel = selection.greedy_maxlogdet_lowrank(
+            factors, visible & jac.visible, k=gf_budget, batch=gf_batch, info_prior=info_prior7,
+        )
+        match_v = sel.selected
+        gf_sel_v = sel.selected
+    else:
+        match_v = visible
+        gf_sel_v = torch.zeros_like(visible)
+
+    # --- projection matching of all visible candidates into the frame ---
+    rad = radius * lc.sf[pred_oct.long()]
+    rad = torch.where(cos_view < 0.998, rad * (5.0 / 3.0), rad)
+    free_kp = frame.valid & (obs_point == NO_POINT)
+    pmask = matching.projection_mask(uv_proj, visible, frame.uv, frame.octave, free_kp, rad, pred_oct)
+    res = matching.match(view.desc, frame.desc, pmask, max_dist=matching.TH_HIGH, ratio=0.8, mutual=True)
+    hit_all = res.matched & visible
+    hit = hit_all & match_v
+
+    obs = _scatter_ids(N, hit, res.idx, view.ids, base=obs_point)
+
+    # --- pose optimization over the (budgeted) matches ---
+    op = torch.clamp(obs, min=0).long()
+    sigma2 = lvl_sigma2[frame.octave.long()]
+    result = pose_opt.optimize_pose(cam, pose, m.pt_pos[op], frame.uv, 1.0 / sigma2, obs >= 0)
+    obs_final = torch.where(result.inliers, obs, NO_POINT)
+
+    # --- deferred matches: matched but outside the GF budget, χ²-gated at
+    # the refined pose (mutual matching keeps their slots disjoint) ---
+    hit_def = hit_all & ~hit
+    obs_def = _scatter_ids(N, hit_def, res.idx, view.ids)
+    dp = torch.clamp(obs_def, min=0).long()
+    uv_hat_d, _, front_d = project(cam, se3.transform_point(result.pose, m.pt_pos[dp]))
+    r_d = frame.uv - uv_hat_d
+    chi2_d = torch.sum(r_d * r_d, dim=-1) / sigma2
+    keep_d = (obs_def >= 0) & front_d & (chi2_d < pose_opt.HUBER_DELTA2)
+    obs_final = torch.where((obs_final == NO_POINT) & keep_d, obs_def, obs_final)
+
+    found = _scatter_mask(P, obs_final >= 0, obs_final)
+    return LocalMapTrackResult(
+        pose=result.pose,
+        obs_point=obs_final,
+        n_inliers=result.n_inliers,
+        ok=result.n_inliers >= min_inliers,
+        local_points=_scatter_mask(P, valid_v, view.ids),
+        gf_selected=_scatter_mask(P, gf_sel_v, view.ids),
+        visible_points=_scatter_mask(P, visible, view.ids),
+        found_points=found,
+        n_total=(obs_final >= 0).sum(dtype=torch.int32),
+    )
+
+
+class FusedTrackResult(NamedTuple):
+    """Everything the host needs from one WORKING-state frame."""
+
+    pose: torch.Tensor            # (7,)
+    obs_point: torch.Tensor       # (N,)
+    frame_uv: torch.Tensor        # (N, 2) undistorted keypoints (for next frame)
+    frame_octave: torch.Tensor    # (N,)
+    frame_angle: torch.Tensor     # (N,)
+    frame_desc: torch.Tensor      # (N, 8)
+    frame_valid: torch.Tensor     # (N,)
+    n_inliers: torch.Tensor       # () int32
+    ok: torch.Tensor              # () bool — both stages passed
+    velocity: torch.Tensor        # (7,) updated T_cur_last
+    pt_visible_add: torch.Tensor  # (P,) bool — this frame's visibility
+    pt_found_add: torch.Tensor    # (P,) bool
+    pt_visible: torch.Tensor      # (P,) int32 — already-incremented counters
+    pt_found: torch.Tensor        # (P,) int32
+    n_total: torch.Tensor         # () int32 — LM inliers + deferred matches
+    next_key: torch.Tensor        # (2,) per-frame key for the next frame
+
+
+def track_frame_fused(
+    cam: CameraModel,
+    orb_cfg,
+    m: ms.MapState,
+    view: TrackView,
+    img: torch.Tensor,
+    last_pose: torch.Tensor,
+    last_obs: torch.Tensor,
+    last_uv: torch.Tensor,
+    velocity: torch.Tensor,
+    dt,
+    key: torch.Tensor,
+    scale: float = 1.2,
+    n_levels: int = 8,
+    gf_budget: int = 100,
+    use_gf: bool = False,
+    gf_mode: str = "subset",
+    gf_batch: int = 1,
+) -> FusedTrackResult:
+    """The per-frame WORKING path: ORB extraction → motion-model tracking
+    (with the wide-radius retry) → local-map tracking (+ GF selection) →
+    velocity update → counter deltas. Runs on the device of `img`."""
+    frame = make_frame(img, cam, orb_cfg)
+    pose_pred = se3.compose(velocity, last_pose)
+
+    r = track_with_motion_model(
+        cam, m, frame, pose_pred, last_obs, last_uv, scale=scale, n_levels=n_levels, radius=15.0,
+    )
+    # Widened search from the last pose when the motion model fails. This
+    # host branch on r.ok is the step's one device synchronisation; running
+    # both branches and selecting (for CUDA-graph capture) is later work.
+    if not bool(r.ok):
+        r = track_with_motion_model(
+            cam, m, frame, last_pose, last_obs, last_uv, scale=scale, n_levels=n_levels, radius=40.0,
+        )
+    pose1, obs1, ok1 = r.pose, r.obs_point, r.ok
+
+    t0 = torch.zeros((), dtype=pose1.dtype, device=pose1.device)
+    dt = torch.as_tensor(dt, dtype=pose1.dtype, device=pose1.device)
+    Xv = pwls.state_from_pose_pair(t0, last_pose, t0 + dt, pose1)
+    r2 = track_local_map(
+        cam, m, view, frame, pose1, obs1, Xv, key, scale=scale, n_levels=n_levels,
+        gf_budget=gf_budget, use_gf=use_gf, gf_mode=gf_mode, gf_batch=gf_batch,
+    )
+    return FusedTrackResult(
+        pose=r2.pose,
+        obs_point=r2.obs_point,
+        frame_uv=frame.uv,
+        frame_octave=frame.octave,
+        frame_angle=frame.angle,
+        frame_desc=frame.desc,
+        frame_valid=frame.valid,
+        n_inliers=r2.n_inliers,
+        ok=ok1 & r2.ok,
+        velocity=se3.compose(r2.pose, se3.inverse(last_pose)),
+        pt_visible_add=r2.visible_points,
+        pt_found_add=r2.found_points,
+        pt_visible=m.pt_visible + r2.visible_points.to(torch.int32),
+        pt_found=m.pt_found + r2.found_points.to(torch.int32),
+        n_total=r2.n_total,
+        next_key=key + torch.arange(2, dtype=key.dtype, device=key.device),  # + [0, 1]
+    )

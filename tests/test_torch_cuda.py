@@ -1,0 +1,123 @@
+"""Tests of the port that need a CUDA GPU: the hand-written Hamming kernel
+against its plain version, and the tracking step on the card against the
+reference's recorded outputs. They skip where there is no GPU.
+
+This file imports neither JAX nor the JAX package, so it also runs on a
+machine that has only the port's dependencies:
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -q
+"""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from gf_orb_slam_tpu_torch.geometry import pwls, se3
+from gf_orb_slam_tpu_torch.geometry.camera import CameraModel
+from gf_orb_slam_tpu_torch.io_utils import snapshot
+from gf_orb_slam_tpu_torch.kernels import hamming
+from gf_orb_slam_tpu_torch.mapping.frame import make_frame
+from gf_orb_slam_tpu_torch.ops import matching
+from gf_orb_slam_tpu_torch.ops.orb import OrbConfig
+from gf_orb_slam_tpu_torch.pipeline import track_view as tv
+from gf_orb_slam_tpu_torch.pipeline import tracking
+
+FIXTURE = os.path.join(os.path.dirname(__file__), "..", "gf_orb_slam_tpu_torch", "data", "track_fixture.npz")
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+def words(rng, n):
+    d = rng.integers(0, 2**32, size=(n, 8), dtype=np.uint32)
+    d[::2, 0] |= np.uint32(1 << 31)
+    return d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq,nt", [(1, 1), (31, 33), (127, 129), (4096, 800), (800, 800), (0, 8), (8, 0)])
+def test_kernel_bit_identical_to_plain(cuda, nq, nt):
+    rng = np.random.default_rng(nq * 10007 + nt)
+    q, t = snapshot.to_tensor(words(rng, nq), cuda), snapshot.to_tensor(words(rng, nt), cuda)
+    got = hamming.hamming_matrix_cuda(q, t)
+    torch.cuda.synchronize()
+    assert got.shape == (nq, nt) and got.dtype == torch.int32
+    assert torch.equal(got, matching.hamming_matrix_torch(q, t))
+
+
+@pytest.mark.cuda
+def test_matching_routes_cuda_tensors_to_the_kernel(cuda):
+    rng = np.random.default_rng(1)
+    q, t = snapshot.to_tensor(words(rng, 50), cuda), snapshot.to_tensor(words(rng, 60), cuda)
+    before = hamming.LAUNCHES
+    got = matching.hamming_matrix(q, t)
+    assert hamming.LAUNCHES == before + 1
+    assert torch.equal(got, matching.hamming_matrix_torch(q, t))
+
+
+def load_fixture(dev):
+    with np.load(FIXTURE) as zf:
+        z = {k: zf[k] for k in zf.files}
+    meta = json.loads(str(z["meta"]))
+    m = snapshot.load_map(FIXTURE, dev)
+    view = tv.compute_track_view(m, int(z["center_kf"]), view_size=meta["view_size"])
+    state = [snapshot.to_tensor(z[k], dev) for k in ("last_pose", "last_obs", "last_uv", "velocity")]
+    return z, meta, m, view, state
+
+
+@pytest.mark.cuda
+def test_tracking_step_on_cuda_matches_reference_outputs(cuda):
+    z, meta, m, view, state = load_fixture(cuda)
+    gf = meta["gf"]
+    before = hamming.LAUNCHES
+    r = tracking.track_frame_fused(
+        CameraModel(**meta["camera"]), OrbConfig(**meta["orb_config"]), m, view,
+        snapshot.to_tensor(z["frames"][0], cuda).float(), *state, meta["dt"],
+        torch.tensor([0, 1], device=cuda), gf_budget=gf["gf_budget"], use_gf=True,
+        gf_mode=gf["gf_mode"], gf_batch=gf["gf_batch"],
+    )
+    torch.cuda.synchronize()
+    assert hamming.LAUNCHES - before >= 2
+    assert bool(r.ok) == bool(z["ref_ok"][0])
+    assert np.abs(r.pose.cpu().numpy() - z["ref_pose"][0]).max() <= 1e-3
+    want = int(z["ref_n_inliers"][0])
+    assert abs(int(r.n_inliers) - want) <= max(3, 0.02 * want)
+    o, ro = r.obs_point.cpu().numpy(), z["ref_obs_point"][0]
+    either = (o >= 0) | (ro >= 0)
+    assert (o == ro)[either].mean() >= 0.95
+
+
+@pytest.mark.cuda
+def test_tracking_stages_never_synchronise(cuda):
+    """Extraction, motion-model and local-map tracking make no host sync (the
+    step's one sync is its wide-radius retry branch, between the stages)."""
+    z, meta, m, view, (pose, obs, uv, vel) = load_fixture(cuda)
+    cam, cfg, gf = CameraModel(**meta["camera"]), OrbConfig(**meta["orb_config"]), meta["gf"]
+    img = snapshot.to_tensor(z["frames"][0], cuda).float()
+    dt = torch.tensor(meta["dt"], device=cuda)
+
+    def stages():
+        frame = make_frame(img, cam, cfg)
+        r1 = tracking.track_with_motion_model(cam, m, frame, se3.compose(vel, pose), obs, uv)
+        t0 = torch.zeros((), device=cuda)
+        Xv = pwls.state_from_pose_pair(t0, pose, t0 + dt, r1.pose)
+        return tracking.track_local_map(
+            cam, m, view, frame, r1.pose, r1.obs_point, Xv, gf_budget=gf["gf_budget"],
+            use_gf=True, gf_mode=gf["gf_mode"], gf_batch=gf["gf_batch"],
+        )
+
+    stages()  # the first call builds the kernel library and caches device constants
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        r2 = stages()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(r2.ok)

@@ -1,0 +1,43 @@
+"""The PyTorch port must run where JAX is not installed: importing every
+module of gf_orb_slam_tpu_torch, in a fresh interpreter where importing JAX
+or the JAX package fails, must succeed and leave neither loaded."""
+
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+PROBE = r"""
+import importlib, importlib.abc, pkgutil, sys
+
+BLOCKED = ("jax", "jaxlib", "gf_orb_slam_tpu")
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+for mod in [m for m in sys.modules if m.split(".")[0] in BLOCKED]:
+    del sys.modules[mod]
+sys.meta_path.insert(0, Block())
+
+import gf_orb_slam_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(gf_orb_slam_tpu_torch.__path__, "gf_orb_slam_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+assert not loaded, loaded
+assert "jax" not in sys.modules
+print(len(names))
+"""
+
+
+def test_port_imports_without_jax():
+    out = subprocess.run(
+        [sys.executable, "-c", PROBE], cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    n_modules = int(out.stdout.strip().splitlines()[-1])
+    assert n_modules >= 20  # every subpackage and module was walked

@@ -1,0 +1,161 @@
+"""The port's per-frame tracking slice against the JAX reference at the
+bench's real size (752×480, 800 features, view 4096, GF subset mode at
+budget 100, batch 10), on the fixture written by tools/make_torch_fixture.py.
+
+Each frame gets the same inputs on both sides: the reference's outputs of
+the previous frame. Tolerances: pose ≤ 1e-3 rad and ≤ 1e-3 map units (the
+map is median-depth normalised), n_inliers and n_total within max(3, 2%),
+ok equal, ≥ 95% obs_point agreement over slots either side matched — the
+pyramid's float32 sums differ by ulps between XLA and torch, which can move
+a keypoint and the decisions downstream of it.
+"""
+
+import json
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gf_orb_slam_tpu.geometry.camera import CameraModel as JCam
+from gf_orb_slam_tpu.io_utils import snapshot as jsnap
+from gf_orb_slam_tpu.ops.orb import OrbConfig as JOrbConfig
+from gf_orb_slam_tpu.pipeline import track_view as jtv
+from gf_orb_slam_tpu.pipeline import tracking as jtrk
+from gf_orb_slam_tpu_torch.geometry.camera import CameraModel
+from gf_orb_slam_tpu_torch.io_utils import snapshot
+from gf_orb_slam_tpu_torch.mapping import map_state as ms
+from gf_orb_slam_tpu_torch.ops.orb import OrbConfig
+from gf_orb_slam_tpu_torch.pipeline import track_view as tv
+from gf_orb_slam_tpu_torch.pipeline import tracking
+
+FIXTURE = os.path.join(os.path.dirname(__file__), "..", "gf_orb_slam_tpu_torch", "data", "track_fixture.npz")
+CPU = torch.device("cpu")
+
+
+@pytest.fixture(scope="module")
+def fx():
+    with np.load(FIXTURE) as z:
+        arrays = {k: z[k] for k in z.files}
+    meta = json.loads(str(arrays["meta"]))
+    m = snapshot.load_map(FIXTURE, CPU)
+    view = tv.compute_track_view(m, int(arrays["center_kf"]), view_size=meta["view_size"])
+    return arrays, meta, m, view
+
+
+def inputs_for(arrays, i):
+    """(last_pose, last_obs, last_uv, velocity) before frame i, as numpy."""
+    if i == 0:
+        return [arrays[k] for k in ("last_pose", "last_obs", "last_uv", "velocity")]
+    return [arrays[f"ref_{k}"][i - 1] for k in ("pose", "obs_point", "frame_uv", "velocity")]
+
+
+def run_port(fx, i, use_gf=True):
+    arrays, meta, m, view = fx
+    gf = meta["gf"]
+    state = [snapshot.to_tensor(a, CPU) for a in inputs_for(arrays, i)]
+    return tracking.track_frame_fused(
+        CameraModel(**meta["camera"]), OrbConfig(**meta["orb_config"]), m, view,
+        snapshot.to_tensor(arrays["frames"][i], CPU).to(torch.float32), *state,
+        meta["dt"], torch.tensor([0, 1]), gf_budget=gf["gf_budget"], use_gf=use_gf,
+        gf_mode=gf["gf_mode"], gf_batch=gf["gf_batch"],
+    )
+
+
+def rot_err(q1, q2):
+    d = abs(float(np.dot(q1 / np.linalg.norm(q1), q2 / np.linalg.norm(q2))))
+    return 2.0 * np.arccos(min(1.0, d))
+
+
+def assert_slice_close(r, ref):
+    p = r.pose.numpy()
+    assert rot_err(p[:4], ref["pose"][:4]) <= 1e-3
+    assert np.linalg.norm(p[4:] - ref["pose"][4:]) <= 1e-3
+    for k in ("n_inliers", "n_total"):
+        got, want = int(getattr(r, k)), int(ref[k])
+        assert abs(got - want) <= max(3, 0.02 * want), (k, got, want)
+    assert bool(r.ok) == bool(ref["ok"])
+    o, ro = r.obs_point.numpy(), ref["obs_point"]
+    either = (o >= 0) | (ro >= 0)
+    assert (o == ro)[either].mean() >= 0.95
+
+
+def test_load_map_round_trips_reference_snapshot(fx):
+    arrays, _, m, _ = fx
+    back = ms.to_numpy(m)
+    for k, v in back.items():
+        ref = arrays["map_" + k]
+        assert v.dtype == ref.dtype and v.shape == ref.shape, k
+        np.testing.assert_array_equal(v, ref, err_msg=k)
+    # The reference's own loader reads the same arrays.
+    jm, _, _ = jsnap.load_map(FIXTURE)
+    np.testing.assert_array_equal(back["pt_desc"], np.asarray(jm.pt_desc))
+    assert m.pt_desc.dtype == torch.int32 and m.pt_valid.dtype == torch.bool
+
+
+def test_view_and_frame_from_numpy(fx):
+    arrays, _, _, view = fx
+    v = snapshot.track_view_from_numpy(arrays, CPU, prefix="track_view_")
+    for k in tv.TrackView._fields:
+        assert torch.equal(getattr(v, k), getattr(view, k)), k
+    rng = np.random.default_rng(0)
+    n = arrays["ref_frame_valid"].shape[1]
+    d = {
+        "uv": arrays["ref_frame_uv"][0], "uv_raw": arrays["ref_frame_uv"][0],
+        "octave": rng.integers(0, 8, n).astype(np.int32), "angle": rng.random(n).astype(np.float32),
+        "desc": rng.integers(0, 2**32, size=(n, 8), dtype=np.uint32),
+        "response": np.zeros(n, np.float32), "valid": arrays["ref_frame_valid"][0],
+    }
+    f = snapshot.frame_from_numpy(d, CPU)
+    assert f.desc.dtype == torch.int32 and f.valid.dtype == torch.bool
+    np.testing.assert_array_equal(f.desc.numpy().view(np.uint32), d["desc"])
+    np.testing.assert_array_equal(f.uv.numpy(), d["uv"])
+    with pytest.raises(KeyError, match="angle"):
+        snapshot.frame_from_numpy({k: a for k, a in d.items() if k != "angle"}, CPU)
+
+
+def test_compute_track_view_matches_reference(fx):
+    arrays, meta, m, view = fx
+    for k in tv.TrackView._fields:
+        want = arrays["track_view_" + k]
+        got = getattr(view, k).numpy()
+        np.testing.assert_array_equal(got.view(np.uint32) if k == "desc" else got, want, err_msg=k)
+    assert int(view.valid.sum()) == meta["n_points"]
+
+
+@pytest.mark.parametrize("i", [0, 1, 2])
+def test_track_frame_fused_gf_subset(fx, i):
+    arrays = fx[0]
+    r = run_port(fx, i)
+    ref = {k: arrays["ref_" + k][i] for k in ("pose", "obs_point", "n_inliers", "n_total", "ok", "frame_valid")}
+    assert_slice_close(r, ref)
+    np.testing.assert_array_equal(r.frame_valid.numpy(), ref["frame_valid"])
+    P = fx[2].pt_capacity
+    assert r.pt_visible.shape == (P,) and r.pt_visible.dtype == torch.int32
+    assert torch.equal(r.next_key, torch.tensor([0, 2]))
+
+
+def test_track_frame_fused_gf_off_against_reference(fx):
+    arrays, meta, _, _ = fx
+    i = 1
+    m_j, _, _ = jsnap.load_map(FIXTURE)
+    view_j = jtv.compute_track_view(m_j, jnp.asarray(int(arrays["center_kf"])), view_size=meta["view_size"])
+    pose, obs, uv, vel = (jnp.asarray(a) for a in inputs_for(arrays, i))
+    rj = jtrk.track_frame_fused(
+        JCam(**meta["camera"]), JOrbConfig(**meta["orb_config"]), m_j, view_j,
+        jnp.asarray(arrays["frames"][i], jnp.float32), pose, obs, uv, vel,
+        jnp.asarray(meta["dt"], jnp.float32), jnp.asarray([0, 1], jnp.uint32), use_gf=False,
+    )
+    ref = {k: np.asarray(getattr(rj, k)) for k in ("pose", "obs_point", "n_inliers", "n_total", "ok")}
+    assert_slice_close(run_port(fx, i, use_gf=False), ref)
+
+
+@pytest.mark.parametrize("mode", ["hybrid", "lazier", "auto", "active", "random", "longlive"])
+def test_unported_gf_modes_refuse(fx, mode):
+    _, meta, m, view = fx
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tracking.track_local_map(
+            CameraModel(**meta["camera"]), m, view, None, torch.zeros(7), torch.zeros(1, dtype=torch.int32),
+            torch.zeros(13), use_gf=True, gf_mode=mode,
+        )
