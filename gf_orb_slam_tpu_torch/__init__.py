@@ -1,20 +1,23 @@
 """gf_orb_slam_tpu_torch — the PyTorch / CUDA port of gf_orb_slam_tpu.
 
-The per-frame WORKING-state tracking path (ORB extraction → motion-model
-tracking → Good-Feature selection → local-map tracking) as plain functions on
-torch tensors, with the Hamming distance matrix as a hand-written CUDA kernel
-for Hopper (kernels/hamming.py, csrc/hamming.cu). The JAX package is the
-reference each module is tested against; this package never imports it.
+The SLAM loop without place recognition — two-view initialization,
+per-frame tracking (ORB extraction → motion-model tracking → Good-Feature
+selection → local-map tracking), keyframe insertion with local mapping, and
+the system's state machine — as plain functions on torch tensors, with the
+Hamming distance matrix as a hand-written CUDA kernel for Hopper
+(kernels/hamming.py, csrc/hamming.cu). The JAX package is the reference each
+module is tested against; this package never imports it.
 
 Layout mirrors the reference:
   geometry/   quaternions, SE(3), pinhole camera, PWLS state, small linalg
   ops/        pyramid, FAST, ORB, Hamming matching
   kernels/    CUDA kernel wrappers and their nvcc build (sources in csrc/)
   gf/         measurement Jacobians, Max-logDet greedy selection
-  solvers/    pose-only Levenberg–Marquardt
-  mapping/    MapState (read side), FrameData
-  pipeline/   track view, per-frame tracking
-  io_utils/   reading the reference's map snapshots and fixtures
+  solvers/    pose-only LM, two-view initializer, Schur bundle adjustment
+  mapping/    MapState and its functional updates, keyframe operations, FrameData
+  pipeline/   track view, per-frame tracking, local mapping, SlamSystem
+  io_utils/   map snapshots, the synthetic planes scene, evaluation, timing
+  run_slam    the command line (python -m gf_orb_slam_tpu_torch.run_slam)
 
 Descriptors are (·, 8) int32 bit views of the reference's uint32 words.
 """

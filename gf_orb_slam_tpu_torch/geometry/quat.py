@@ -58,6 +58,41 @@ def q2r(q: torch.Tensor) -> torch.Tensor:
     return torch.stack([row0, row1, row2], dim=-2)
 
 
+def r2q(R: torch.Tensor) -> torch.Tensor:
+    """DCM → quaternion, wxyz with w ≥ 0, branch-free: the largest-pivot
+    candidate of the four standard constructions."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def safe_sqrt(v):
+        return torch.sqrt(torch.clamp(v, min=_EPS * _EPS))
+
+    s_w = safe_sqrt(1.0 + tr)
+    q_w = torch.stack(
+        [0.5 * s_w, (m21 - m12) / (2.0 * s_w), (m02 - m20) / (2.0 * s_w), (m10 - m01) / (2.0 * s_w)], dim=-1
+    )
+    s_x = safe_sqrt(1.0 + m00 - m11 - m22)
+    q_x = torch.stack(
+        [(m21 - m12) / (2.0 * s_x), 0.5 * s_x, (m01 + m10) / (2.0 * s_x), (m02 + m20) / (2.0 * s_x)], dim=-1
+    )
+    s_y = safe_sqrt(1.0 - m00 + m11 - m22)
+    q_y = torch.stack(
+        [(m02 - m20) / (2.0 * s_y), (m01 + m10) / (2.0 * s_y), 0.5 * s_y, (m12 + m21) / (2.0 * s_y)], dim=-1
+    )
+    s_z = safe_sqrt(1.0 - m00 - m11 + m22)
+    q_z = torch.stack(
+        [(m10 - m01) / (2.0 * s_z), (m02 + m20) / (2.0 * s_z), (m12 + m21) / (2.0 * s_z), 0.5 * s_z], dim=-1
+    )
+    cond_tr = (tr > 0.0)[..., None]
+    cond_x = ((m00 >= m11) & (m00 >= m22))[..., None]
+    cond_y = (m11 >= m22)[..., None]
+    q = torch.where(cond_tr, q_w, torch.where(cond_x, q_x, torch.where(cond_y, q_y, q_z)))
+    q = q * torch.where(q[..., :1] < 0.0, -1.0, 1.0)
+    return qnormalize(q)
+
+
 def v2q(v: torch.Tensor) -> torch.Tensor:
     """Rotation vector → quaternion, with the small-angle series below _EPS."""
     a2 = torch.sum(v * v, dim=-1, keepdim=True)

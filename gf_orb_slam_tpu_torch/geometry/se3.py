@@ -14,6 +14,22 @@ def make_pose(q: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return torch.cat([q, t], dim=-1)
 
 
+def identity_pose(dtype=torch.float32, device=None) -> torch.Tensor:
+    """[1, 0, 0, 0, 0, 0, 0], built by a fill (no host→device copy)."""
+    return torch.zeros(7, dtype=dtype, device=device).index_fill_(
+        0, torch.zeros(1, dtype=torch.int64, device=device), 1.0
+    )
+
+
+def pose_matrix(p: torch.Tensor) -> torch.Tensor:
+    """7-vec → 4×4 homogeneous matrix."""
+    R = quat.q2r(quat.qnormalize(pose_q(p)))
+    top = torch.cat([R, pose_t(p)[..., None]], dim=-1)
+    zeros = torch.zeros(p.shape[:-1] + (1, 3), dtype=p.dtype, device=p.device)
+    bottom = torch.cat([zeros, torch.ones_like(zeros[..., :1])], dim=-1)
+    return torch.cat([top, bottom], dim=-2)
+
+
 def pose_q(p: torch.Tensor) -> torch.Tensor:
     return p[..., :4]
 

@@ -1,0 +1,122 @@
+"""Synthetic multi-plane scene with exact ground-truth poses (port of the
+planes scene of gf_orb_slam_tpu/io_utils/synthetic.py): a camera flies past
+textured fronto-parallel planes at different depths, each frame rendered by
+ray–plane intersection and bilinear texture sampling, on the device of the
+scene's textures.
+
+The texture generator is the reference's numpy code, copied (tests hold the
+textures equal); `trajectory` is numpy plus the port's quaternion ops on the
+CPU.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from gf_orb_slam_tpu_torch.geometry import quat, se3
+from gf_orb_slam_tpu_torch.geometry.camera import CameraModel
+
+
+class PlaneScene(NamedTuple):
+    textures: torch.Tensor  # (n_planes, T, T) float32
+    depths: torch.Tensor    # (n_planes,) plane z in world
+    centers: torch.Tensor   # (n_planes, 2) world (x, y) of texture center
+    extents: torch.Tensor   # (n_planes,) half-size in world units
+    tex_size: int
+
+
+def blob_textures(seed: int, n_planes: int, tex_size: int) -> np.ndarray:
+    """(n_planes, T, T) float32 blobby high-contrast textures with fine
+    noise, drawn exactly as the reference's make_scene draws them."""
+    rng = np.random.default_rng(seed)
+    texs = []
+    for _ in range(n_planes):
+        t = np.full((tex_size, tex_size), 128.0, np.float32)
+        for _ in range(tex_size // 2):
+            y, x = rng.integers(0, tex_size - 24, 2)
+            sy, sx = rng.integers(6, 24, 2)
+            t[y : y + sy, x : x + sx] = rng.uniform(10, 245)
+        t += rng.uniform(-12, 12, t.shape).astype(np.float32)
+        texs.append(np.clip(t, 0, 255))
+    return np.stack(texs)
+
+
+def make_scene(
+    seed: int = 0, n_planes: int = 3, tex_size: int = 1024,
+    depths=(6.0, 9.0, 14.0), extents=(5.0, 8.0, 14.0), device=None,
+) -> PlaneScene:
+    f32 = dict(dtype=torch.float32, device=device)
+    return PlaneScene(
+        textures=torch.from_numpy(blob_textures(seed, n_planes, tex_size)).to(device),
+        depths=torch.tensor(depths[:n_planes], **f32),
+        centers=torch.zeros((n_planes, 2), **f32),
+        extents=torch.tensor(extents[:n_planes], **f32),
+        tex_size=tex_size,
+    )
+
+
+def render(scene: PlaneScene, cam: CameraModel, pose_cw: torch.Tensor) -> torch.Tensor:
+    """One frame: per-pixel ray ↦ nearest plane intersection ↦ bilinear
+    texture sample. (H, W) float32 in [0, 255] on the scene's device."""
+    dev = scene.textures.device
+    H, W, T = cam.height, cam.width, scene.tex_size
+    yy = torch.arange(H, dtype=torch.float32, device=dev)[:, None].expand(H, W)
+    xx = torch.arange(W, dtype=torch.float32, device=dev)[None, :].expand(H, W)
+    rx = (xx - cam.cx) / cam.fx
+    ry = (yy - cam.cy) / cam.fy
+    rays_c = torch.stack([rx, ry, torch.ones_like(rx)], dim=-1)  # (H, W, 3)
+
+    pose_wc = se3.inverse(pose_cw.to(device=dev, dtype=torch.float32))
+    C = se3.pose_t(pose_wc)
+    rays_w = quat.rotate(se3.pose_q(pose_wc)[None, None, :], rays_c)
+
+    tex_px_per_unit = T / (2.0 * scene.extents)
+    best_depth = torch.full((H, W), float("inf"), device=dev)
+    out = torch.full((H, W), 96.0, device=dev)  # background
+    rz = rays_w[..., 2]
+    rz = torch.where(torch.abs(rz) < 1e-9, 1e-9, rz)
+    for p in range(scene.textures.shape[0]):
+        lam = (scene.depths[p] - C[2]) / rz
+        Xw = C[None, None, :] + lam[..., None] * rays_w
+        u = (Xw[..., 0] - scene.centers[p, 0] + scene.extents[p]) * tex_px_per_unit[p]
+        v = (Xw[..., 1] - scene.centers[p, 1] + scene.extents[p]) * tex_px_per_unit[p]
+        inside = (lam > 0.1) & (u >= 0) & (u < T - 1) & (v >= 0) & (v < T - 1)
+        u0 = torch.clamp(torch.floor(u).to(torch.int32), 0, T - 2)
+        v0 = torch.clamp(torch.floor(v).to(torch.int32), 0, T - 2)
+        fu, fv = u - u0, v - v0
+        t = scene.textures[p]
+        u0l, v0l = u0.long(), v0.long()
+        val = (
+            t[v0l, u0l] * (1 - fu) * (1 - fv)
+            + t[v0l, u0l + 1] * fu * (1 - fv)
+            + t[v0l + 1, u0l] * (1 - fu) * fv
+            + t[v0l + 1, u0l + 1] * fu * fv
+        )
+        closer = inside & (lam < best_depth)
+        best_depth = torch.where(closer, lam, best_depth)
+        out = torch.where(closer, val, out)
+    return out
+
+
+def trajectory(
+    n_frames: int, fps: float = 20.0, radius: float = 1.2, forward: float = 0.4,
+    yaw_amp: float = 0.06,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Smooth figure trajectory: lateral sweep plus slight forward and yaw
+    motion. Returns (timestamps (F,), poses_cw (F, 7)) as numpy arrays."""
+    ts = np.arange(n_frames, dtype=np.float64) / fps
+    poses = []
+    for t in ts:
+        phase = 2.0 * np.pi * t / (n_frames / fps)
+        tx = radius * np.sin(phase)
+        ty = 0.25 * radius * np.sin(2.0 * phase)
+        tz = forward * np.sin(phase * 0.5)
+        yaw = yaw_amp * np.sin(phase + 0.5)
+        pitch = 0.4 * yaw_amp * np.cos(phase)
+        q_wc = quat.v2q(torch.tensor([pitch, yaw, 0.0], dtype=torch.float32))
+        t_wc = torch.tensor([tx, ty, tz], dtype=torch.float32)
+        poses.append(se3.inverse(se3.make_pose(q_wc, t_wc)).numpy())
+    return ts.astype(np.float64), np.stack(poses)

@@ -11,12 +11,16 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import math
+
 import torch
 
 from gf_orb_slam_tpu_torch.kernels import hamming as hamming_kernel
+from gf_orb_slam_tpu_torch.ops.fast import top_k_stable
 
 TH_LOW = 50
 TH_HIGH = 100
+HISTO_BINS = 30
 BIG = 10_000
 
 
@@ -67,6 +71,29 @@ def masked_best2(dist: torch.Tensor, mask: torch.Tensor):
     return best_idx.to(torch.int32), best, second
 
 
+def orientation_consistency(
+    angle_q: torch.Tensor, angle_t: torch.Tensor, matched: torch.Tensor, idx: torch.Tensor
+) -> torch.Tensor:
+    """Keep only matches whose rotation Δθ falls in the 3 dominant histogram
+    bins, each at least 10% of the largest (ORBmatcher's rotHist rule). Bin
+    ties rank lowest bin first, as JAX's top_k does."""
+    # jnp.mod's float formula (fmod, then shift negatives up), not
+    # torch.remainder's floor division, which can differ by an ulp.
+    dtheta = torch.fmod(angle_q - angle_t[idx.long()], 2.0 * math.pi)
+    dtheta = torch.where(dtheta < 0, dtheta + 2.0 * math.pi, dtheta)
+    bins = torch.clamp(
+        torch.remainder(torch.round(dtheta * (HISTO_BINS / (2.0 * math.pi))).to(torch.int32), HISTO_BINS),
+        0, HISTO_BINS - 1,
+    ).long()
+    hist = torch.zeros(HISTO_BINS, dtype=torch.int32, device=bins.device)
+    hist = hist.scatter_add(0, bins, matched.to(torch.int32))
+    top3, top3_idx = top_k_stable(hist, 3)
+    floor = torch.clamp((0.1 * top3[0]).to(torch.int32), min=1)
+    keep = top3 >= floor
+    bin_ok = torch.zeros(HISTO_BINS, dtype=torch.bool, device=bins.device).scatter(0, top3_idx, keep)
+    return matched & bin_ok[bins]
+
+
 def mutual_filter(dist: torch.Tensor, mask: torch.Tensor, idx: torch.Tensor, matched: torch.Tensor):
     """Cross-check: query q's best target t must have q as its best query."""
     d = torch.where(mask, dist, BIG)
@@ -81,11 +108,13 @@ def match(
     mask: torch.Tensor,
     max_dist: int = TH_LOW,
     ratio: float = 1.0,
+    angle_q: torch.Tensor | None = None,
+    angle_t: torch.Tensor | None = None,
     mutual: bool = False,
 ) -> MatchResult:
-    """The one matching kernel: `mask[q, t]` gates candidate pairs. The
-    reference's orientation-consistency option is not on the tracking path
-    and is not ported."""
+    """The one matching kernel: `mask[q, t]` gates candidate pairs; with
+    both angle arrays given, the rotation-histogram consistency check runs
+    after the ratio and mutual tests."""
     dist = hamming_matrix(desc_q, desc_t)
     idx, best, second = masked_best2(dist, mask)
     matched = best <= max_dist
@@ -93,6 +122,8 @@ def match(
         matched = matched & (best.to(torch.float32) <= ratio * second.to(torch.float32))
     if mutual:
         matched = mutual_filter(dist, mask, idx, matched)
+    if angle_q is not None and angle_t is not None:
+        matched = orientation_consistency(angle_q, angle_t, matched, idx)
     return MatchResult(idx=idx, dist=best, matched=matched)
 
 
@@ -132,3 +163,22 @@ def projection_mask(
     lo = pred_octave + octave_window[0]
     hi = pred_octave + octave_window[1]
     return base & octave_mask(lo, hi, kp_octave)
+
+
+def epipolar_mask(
+    uv1: torch.Tensor,
+    uv2: torch.Tensor,
+    F12: torch.Tensor,
+    sigma2_t: torch.Tensor,
+    valid_q: torch.Tensor,
+    valid_t: torch.Tensor,
+    thresh_chi2: float = 3.84,
+) -> torch.Tensor:
+    """Epipolar-line distance gate of the triangulation search: target t
+    within chi² · σ²_t of query q's epipolar line x1ᵀ F12ᵀ."""
+    x1 = torch.cat([uv1, torch.ones_like(uv1[:, :1])], dim=-1)  # (Nq, 3)
+    lines = x1 @ F12.T  # (Nq, 3): epipolar lines in image 2
+    a, b, c = lines[:, 0:1], lines[:, 1:2], lines[:, 2:3]
+    d = a * uv2[None, :, 0] + b * uv2[None, :, 1] + c  # (Nq, Nt)
+    dsq = (d * d) / torch.clamp(a * a + b * b, min=1e-12)
+    return (dsq < thresh_chi2 * sigma2_t[None, :]) & valid_q[:, None] & valid_t[None, :]

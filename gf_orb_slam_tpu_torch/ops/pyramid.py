@@ -10,6 +10,7 @@ per-level matrices, as in the reference's build_pyramid_stack.
 from __future__ import annotations
 
 from functools import lru_cache
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -133,3 +134,30 @@ def features_per_level(n_features: int, n_levels: int, scale: float) -> list[int
         acc += q
     quotas.append(max(n_features - acc, 0))
     return quotas
+
+
+class LevelConsts(NamedTuple):
+    """Per-level tables of the scale pyramid, on one device."""
+
+    sigma2: torch.Tensor  # (L,) scale^(2l)
+    sf: torch.Tensor      # (L,) scale^l
+    log_s: torch.Tensor   # () log(scale) in float32
+
+
+@lru_cache(maxsize=None)
+def level_consts(scale: float, n_levels: int, device: torch.device) -> LevelConsts:
+    # Cached per device: a host→device copy synchronises the stream, so the
+    # step must not make one per frame.
+    f32 = dict(dtype=torch.float32, device=device)
+    return LevelConsts(
+        sigma2=torch.tensor([scale ** (2 * i) for i in range(n_levels)], **f32),
+        sf=torch.tensor([scale**i for i in range(n_levels)], **f32),
+        log_s=torch.log(torch.tensor(scale, **f32)),
+    )
+
+
+def predict_octave(dist, max_dist, scale: float, n_levels: int):
+    """Pyramid level predicted from the distance ratio (MapPoint::PredictScale)."""
+    ratio = torch.clamp(max_dist / torch.clamp(dist, min=1e-9), min=1e-9)
+    log_s = level_consts(scale, n_levels, dist.device).log_s
+    return torch.clamp(torch.ceil(torch.log(ratio) / log_s).to(torch.int32), 0, n_levels - 1)

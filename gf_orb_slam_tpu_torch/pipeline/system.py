@@ -1,0 +1,441 @@
+"""The SLAM system's host state machine (port of
+gf_orb_slam_tpu/pipeline/system.py with its synchronous semantics): two-view
+initialization, per-frame tracking, keyframe decisions and the fused
+keyframe insertion, on one device.
+
+Left out of the port: the reference's pipelining for a remote accelerator
+(frames in flight, deferred readback, eager finalize), because a local card
+needs none; and place recognition — loop closing, relocalization and the BoW
+vocabulary — which ROADMAP slice 3 ports. With both flags off the vocabulary
+and BoW database feed nothing that changes the map or the trajectory
+(reference system.py:657 trains it, :839 and :876 feed the database), so the
+port skips them. A LOST frame only counts itself (reference :620-627).
+
+Host reads: one packed copy of (ok, n_inliers, pose, n_total) per tracked
+frame, the tracking step's own wide-radius branch, and one packed copy of
+(kf_id, culled_kf, n_ref) after each insertion. The bootstrap reads freely.
+"""
+
+from __future__ import annotations
+
+import enum
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from gf_orb_slam_tpu_torch.geometry import se3
+from gf_orb_slam_tpu_torch.geometry.camera import CameraModel
+from gf_orb_slam_tpu_torch.io_utils.timing import TimeLog
+from gf_orb_slam_tpu_torch.mapping import frame as frame_mod
+from gf_orb_slam_tpu_torch.mapping import map_state as ms
+from gf_orb_slam_tpu_torch.ops import matching, orb
+from gf_orb_slam_tpu_torch.ops.pyramid import level_consts
+from gf_orb_slam_tpu_torch.pipeline import local_mapping
+from gf_orb_slam_tpu_torch.pipeline import track_view as tv
+from gf_orb_slam_tpu_torch.pipeline import tracking
+from gf_orb_slam_tpu_torch.solvers import initializer, local_ba
+
+SLICE3 = "place recognition is not ported yet (ROADMAP slice 3: retrieval, relocalization, loop closing)"
+
+
+class State(enum.Enum):
+    """Tracking state (Tracking.h eTrackingState)."""
+
+    NO_IMAGES_YET = 0
+    NOT_INITIALIZED = 1
+    INITIALIZING = 2
+    WORKING = 3
+    LOST = 4
+
+
+@dataclass
+class SlamConfig:
+    """The reference's SlamConfig, fields and defaults, without the
+    pipelining fields. Its defaults turn place recognition on, which the
+    port refuses: set enable_loop_closing and enable_relocalization False."""
+
+    n_features: int = 800
+    n_levels: int = 8
+    scale: float = 1.2
+    fast_threshold: float = 20.0
+    max_keyframes: int = 256
+    max_points: int = 16384
+    use_motion_model: bool = True
+    use_gf: bool = False            # Good-Feature selection in local-map tracking
+    gf_mode: str = "subset"
+    gf_budget: int = 100
+    gf_batch: int = 10              # picks per greedy round
+    gf_warmup_frames: int = 40      # GF off for this many frames after init
+    max_frames_between_kf: int = 12
+    ba_window: int = 8              # local BA camera window
+    ba_fixed: int = 2               # fixed boundary cameras in the window
+    ba_points: int = 2048           # compacted local-point capacity for BA
+    ba_iters: tuple = (5, 10)       # windowed-BA LM iterations per stage
+    min_init_matches: int = 80
+    init_min_points: int = 0        # >0: reject a bootstrap whose second
+                                    # keyframe keeps fewer BA inliers
+    triangulate_neighbors: int = 3
+    # place recognition / loop closing (ROADMAP slice 3)
+    enable_loop_closing: bool = True
+    enable_relocalization: bool = True
+    vocab_k: int = 10
+    vocab_L: int = 3
+    vocab_train_kfs: int = 4
+    loop_min_kf_gap: int = 10
+    loop_probe_floor: int = 0
+    view_size: int = 4096           # local-map tracking view capacity
+    max_lost_frames: int = 100
+
+
+@dataclass
+class FrameLog:
+    timestamp: float
+    state: str
+    pose_cw: np.ndarray | None
+    n_inliers: int
+    timing_ms: dict = field(default_factory=dict)
+
+
+class SlamSystem:
+    def __init__(self, cam: CameraModel, cfg: SlamConfig | None = None, device=None, seed: int = 0):
+        cfg = cfg or SlamConfig()
+        if cfg.enable_loop_closing:
+            raise NotImplementedError(f"enable_loop_closing=True: {SLICE3}")
+        if cfg.enable_relocalization:
+            raise NotImplementedError(f"enable_relocalization=True: {SLICE3}")
+        self.cam = cam
+        self.cfg = cfg
+        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self.orb_cfg = orb.OrbConfig(
+            n_features=cfg.n_features, n_levels=cfg.n_levels, scale=cfg.scale,
+            fast_threshold=cfg.fast_threshold,
+        )
+        # Initialization extractor with 2x features, whose frames become the
+        # first two keyframes; the map's keypoint capacity is sized for it.
+        self.init_orb_cfg = self.orb_cfg._replace(n_features=2 * cfg.n_features)
+        # The initializer's hypotheses come from this generator; JAX's
+        # threefry stream cannot be reproduced, so runs are compared
+        # statistically (or with injected samples).
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed)
+        self.state = State.NO_IMAGES_YET
+        self.map = self._empty_map()
+        self.frame_id = 0
+        self.last_kf_frame = 0
+        self.last_reloc_frame = -(10**9)
+        self.init_frame = None
+        self.init_ts = None
+        self.last_frame = None
+        self.last_obs = None
+        self.last_pose = None
+        self.last_ts = None
+        self.velocity = None         # (7,) relative pose T_cur_last
+        self.n_ref_tracked = 0
+        self.n_kf = 0
+        self.trajectory: list[tuple[float, np.ndarray]] = []
+        self.logs: list[FrameLog] = []
+        self.frames_since_init = 0
+        self.n_loops_closed = 0      # loop closing is not ported: stays 0
+        self.lost_frames = 0
+        # Per-frame key of the tracking step, advanced on the device.
+        self._key = torch.zeros(2, dtype=torch.int64, device=self.device)
+        self.track_view = tv.empty_view(cfg.view_size, cfg.max_points, self.device)
+        self.time_log = TimeLog()
+
+    def _empty_map(self) -> ms.MapState:
+        return ms.empty_map(
+            max_keyframes=self.cfg.max_keyframes, max_points=self.cfg.max_points,
+            max_kps=2 * self.cfg.n_features, device=self.device,
+        )
+
+    # ------------------------------------------------------------------
+    def set_vocabulary(self, voc):
+        raise NotImplementedError(f"a preset vocabulary: {SLICE3}")
+
+    def load_map_state(self, m, voc=None, db=None):
+        raise NotImplementedError(f"resuming from a saved map relocalizes: {SLICE3}")
+
+    # ------------------------------------------------------------------
+    def process(self, img, timestamp: float) -> FrameLog:
+        """Track one (H, W) image (numpy or tensor, any device) taken at
+        `timestamp` seconds."""
+        img = torch.as_tensor(img).to(device=self.device, dtype=torch.float32)
+        cfg_now = (
+            self.init_orb_cfg
+            if self.state in (State.NO_IMAGES_YET, State.NOT_INITIALIZED, State.INITIALIZING)
+            else self.orb_cfg
+        )
+        self.time_log.start_frame(timestamp)
+        log = FrameLog(timestamp=timestamp, state=self.state.name, pose_cw=None, n_inliers=0)
+
+        if self.state == State.WORKING:
+            self._track(img, timestamp, log)  # extraction runs inside the tracking step
+        else:
+            self.time_log.begin("extraction")
+            frame = frame_mod.make_frame(img, self.cam, cfg_now)
+            self.time_log.end()
+            if self.state in (State.NO_IMAGES_YET, State.NOT_INITIALIZED):
+                self._first_initialization(frame, timestamp)
+            elif self.state == State.INITIALIZING:
+                self._initialize(frame, timestamp)
+            elif self.state == State.LOST:
+                self._relocalize(frame, timestamp, log)
+
+        log.state = self.state.name
+        self.frame_id += 1
+        self.time_log.end_frame(lmk_inlier=log.n_inliers)
+        log.timing_ms = dict(self.time_log.frames[-1].stages_ms)
+        self.logs.append(log)
+        return log
+
+    # ------------------------------------------------------------------
+    def _first_initialization(self, frame, timestamp):
+        """Tracking::FirstInitialization."""
+        if int(frame.valid.sum()) > 100:
+            self.init_frame = frame
+            self.init_ts = timestamp
+            self.state = State.INITIALIZING
+
+    def _initialize(self, frame, timestamp):
+        """Tracking::Initialize + CreateInitialMap."""
+        if int(frame.valid.sum()) <= 100:
+            self.state = State.NOT_INITIALIZED
+            return
+        f0 = self.init_frame
+        mask = matching.window_mask(f0.uv, frame.uv, 100.0, f0.valid, frame.valid)
+        # level-0 only, as SearchForInitialization
+        lvl0 = (f0.octave == 0)[:, None] & (frame.octave == 0)[None, :]
+        res = matching.match(
+            f0.desc, frame.desc, mask & lvl0, max_dist=matching.TH_LOW, ratio=0.9,
+            angle_q=f0.angle, angle_t=frame.angle, mutual=True,
+        )
+        if int(res.matched.sum()) < self.cfg.min_init_matches:
+            self.state = State.NOT_INITIALIZED
+            return
+
+        idx = res.idx.long()
+        uv2 = frame.uv[idx]
+        samples = initializer.sample_hypotheses(res.matched, 200, self.generator)
+        two = initializer.initialize_two_view(self.cam, f0.uv, uv2, res.matched, samples)
+        if not bool(two.success):
+            return  # keep trying against the same init frame
+
+        # --- initial map: 2 keyframes + triangulated points, scaled so the
+        # median depth is 1 (CreateInitialMap's ComputeSceneMedianDepth;
+        # numpy's median, as the reference takes it) ---
+        tri = two.is_triangulated
+        med_depth = float(np.median(two.points3d.cpu().numpy()[tri.cpu().numpy()][:, 2]))
+        X = two.points3d / med_depth
+        pose1 = se3.identity_pose(device=self.device)
+        pose2 = se3.make_pose(se3.pose_q(two.pose21), se3.pose_t(two.pose21) / med_depth)
+
+        N = frame.capacity
+        dev = self.device
+        slots = torch.arange(N, dtype=torch.int32, device=dev)  # first N point slots
+        obs0 = torch.where(tri, slots, ms.NO_POINT)
+        obs1 = ms.set_drop(torch.full((N,), ms.NO_POINT, dtype=torch.int32, device=dev),
+                           torch.where(tri, idx, N), slots)
+        m = ms.add_points(
+            self.map, slots, X, f0.desc, torch.zeros((N, 3), device=dev),
+            torch.full((N,), 0.05, device=dev), torch.full((N,), 100.0, device=dev),
+            first_kf=0, first_frame=self.frame_id, use=tri,
+        )
+        m, _ = ms.add_keyframe(m, pose1, self.frame_id - 1, self.init_ts,
+                               f0.uv, f0.octave, f0.angle, f0.desc, f0.valid, obs0)
+        m, _ = ms.add_keyframe(m, pose2, self.frame_id, timestamp,
+                               frame.uv, frame.octave, frame.angle, frame.desc, frame.valid, obs1)
+
+        # Global BA on the two initial views.
+        m = self._run_local_ba(m, [0, 1], fixed_ids=[0], iters=(8, 12))
+        m = ms.refresh_point_stats(m, scale=self.cfg.scale, n_levels=self.cfg.n_levels)
+        if self.cfg.init_min_points > 0:
+            # Post-init quality gate: observations of the second keyframe
+            # that survived the initial BA.
+            if int((m.kf_obs_point[1] >= 0).sum()) < self.cfg.init_min_points:
+                self.state = State.NOT_INITIALIZED  # retry from a later frame
+                return
+        self.map = m
+
+        self.track_view = tv.compute_track_view(m, 1, view_size=self.cfg.view_size)
+        self.last_pose = m.kf_pose[1]
+        self.last_obs = m.kf_obs_point[1]
+        self.last_frame = frame
+        self.last_ts = timestamp
+        self.velocity = se3.identity_pose(device=dev)
+        self.n_ref_tracked = int((m.kf_obs_point[1] >= 0).sum())
+        self.n_kf = 2
+        self.last_kf_frame = self.frame_id
+        self.frames_since_init = 0
+        self.state = State.WORKING
+        self.trajectory.append((timestamp, self.last_pose.cpu().numpy()))
+
+    # ------------------------------------------------------------------
+    def _track(self, img, timestamp, log):
+        """WORKING-state frame: the fused tracking step, then its scalars."""
+        cfg = self.cfg
+        dt = max(timestamp - self.last_ts, 1e-6)
+        use_gf = cfg.use_gf and self.frames_since_init > cfg.gf_warmup_frames
+
+        self.time_log.begin("local_map_track")
+        res = tracking.track_frame_fused(
+            self.cam, self.orb_cfg, self.map, self.track_view, img,
+            self.last_pose, self.last_obs, self.last_frame.uv,
+            self.velocity if cfg.use_motion_model else se3.identity_pose(device=self.device),
+            torch.full((), dt, dtype=torch.float32, device=self.device), self._key,
+            scale=cfg.scale, n_levels=cfg.n_levels,
+            gf_budget=cfg.gf_budget, use_gf=use_gf, gf_mode=cfg.gf_mode, gf_batch=cfg.gf_batch,
+        )
+        frame_now = frame_mod.FrameData(
+            # The step returns undistorted coordinates only; raw ones are
+            # not needed past this point.
+            uv=res.frame_uv, uv_raw=res.frame_uv, octave=res.frame_octave,
+            angle=res.frame_angle, desc=res.frame_desc,
+            response=torch.zeros_like(res.frame_angle), valid=res.frame_valid,
+        )
+        self._key = res.next_key
+        self.map = self.map._replace(pt_visible=res.pt_visible, pt_found=res.pt_found)
+        self.velocity = res.velocity
+        self.last_pose = res.pose
+        self.last_obs = res.obs_point
+        self.last_frame = frame_now
+        self.last_ts = timestamp
+        self.frames_since_init += 1
+        self.time_log.end("local_map_track")
+
+        # The frame's one read: ok, n_inliers, pose and n_total in one copy
+        # (the counts are exact in float32).
+        self.time_log.begin("pipeline_wait")
+        packed = torch.cat([
+            res.ok.to(torch.float32)[None], res.n_inliers.to(torch.float32)[None],
+            res.pose, res.n_total.to(torch.float32)[None],
+        ]).cpu().numpy()
+        self.time_log.end("pipeline_wait")
+        ok, n_inliers, pose_np, n_total = bool(packed[0]), int(packed[1]), packed[2:9], int(packed[9])
+        if not ok:
+            if self.n_kf <= 5:
+                # Reset the whole map when lost early (Tracking.cc:719-726).
+                self.reset()
+            else:
+                self.state = State.LOST
+                self.last_frame = frame_now
+            return
+
+        log.pose_cw = pose_np
+        log.n_inliers = n_inliers
+        self.trajectory.append((timestamp, pose_np))
+
+        # NeedNewKeyFrame on the full tracked density (LM inliers + deferred
+        # matches) against the same statistic at the last insertion.
+        if tracking.need_new_keyframe(
+            n_total, self.n_ref_tracked,
+            self.frame_id - self.last_kf_frame,
+            self.frame_id - self.last_reloc_frame if self.last_reloc_frame > 0 else 10**9,
+            cfg.max_frames_between_kf,
+        ):
+            if self.n_kf >= cfg.max_keyframes - 2:
+                # Keyframe ids are slab slots: only compaction frees culled ones.
+                self._compact_keyframes()
+            if self.n_kf < cfg.max_keyframes - 1:
+                self.time_log.begin("keyframe_insert")
+                self._insert_keyframe(frame_now, res.pose, res.obs_point, timestamp)
+                self.time_log.end("keyframe_insert")
+
+    def reset(self):
+        """Full reset (Tracking::Reset): clear the map and return to
+        NOT_INITIALIZED. The trajectory so far is kept for evaluation."""
+        self.map = self._empty_map()
+        self.state = State.NOT_INITIALIZED
+        self.n_kf = 0
+        self.n_ref_tracked = 0
+        self.velocity = None
+        self.init_frame = None
+        self.last_obs = None
+        self.lost_frames = 0
+        self.track_view = tv.empty_view(self.cfg.view_size, self.cfg.max_points, self.device)
+
+    def flush(self):
+        """Nothing is deferred in the synchronous system; kept so callers of
+        the reference's API run unchanged."""
+
+    def _compact_keyframes(self):
+        """Renumber live keyframes to the front."""
+        m2, _, n_valid = ms.compact_keyframes(self.map)
+        self.map = m2
+        self.n_kf = int(n_valid)
+        if self.n_kf > 0:
+            self.track_view = tv.compute_track_view(self.map, self.n_kf - 1, view_size=self.cfg.view_size)
+
+    # ------------------------------------------------------------------
+    def _relocalize(self, frame, timestamp, log):
+        """With relocalization off (the only setting ported), a LOST frame
+        is only counted."""
+        self.lost_frames += 1
+
+    # ------------------------------------------------------------------
+    def _insert_keyframe(self, frame, pose, obs_point, timestamp):
+        """CreateNewKeyFrame + the LocalMapping sequence, one call with no
+        host read (pipeline/local_mapping.py); its three scalars are read
+        right after."""
+        cfg = self.cfg
+        pad = self.map.kp_capacity - frame.capacity
+
+        def pz(a, fill=0):
+            return a if pad == 0 else F.pad(a, [0, 0] * (a.dim() - 1) + [0, pad], value=fill)
+
+        res = local_mapping.insert_keyframe_fused(
+            self.cam, self.map, pose, self.frame_id, timestamp,
+            pz(frame.uv), pz(frame.octave), pz(frame.angle), pz(frame.desc),
+            pz(frame.valid, False), pz(obs_point, ms.NO_POINT),
+            scale=cfg.scale, n_levels=cfg.n_levels,
+            ba_window=cfg.ba_window, ba_fixed=cfg.ba_fixed,
+            n_tri_neighbors=cfg.triangulate_neighbors,
+            ba_points=cfg.ba_points, ba_iters=tuple(cfg.ba_iters),
+            view_size=cfg.view_size,
+        )
+        self.map = res.m
+        self.n_kf += 1
+        self.last_kf_frame = self.frame_id
+        self.track_view = res.view
+        # (kf_id, culled_kf, n_ref) in one copy; only n_ref feeds the host
+        # (culled keyframes matter to the BoW database, not ported).
+        scalars = torch.stack([res.kf_id, res.culled_kf, res.n_ref]).cpu().numpy()
+        self.n_ref_tracked = int(scalars[2])
+        return res
+
+    # ------------------------------------------------------------------
+    def _run_local_ba(self, m, kf_ids, fixed_ids, iters=(5, 10), row_active=None):
+        """BA over the chosen keyframes with the results written back (used
+        by the bootstrap; runs once, so its index lists cross to the device
+        as they are)."""
+        if row_active is None:
+            row_active = [True] * len(kf_ids)
+        dev = self.device
+        P, K = m.pt_capacity, m.kf_capacity
+        ids = torch.tensor(kf_ids, dtype=torch.int64, device=dev)
+        act = torch.tensor(row_active, dtype=torch.bool, device=dev)
+        obs_point = torch.where(act[:, None], m.kf_obs_point[ids], ms.NO_POINT)
+        local_pts = ms.mark(P, torch.where(obs_point >= 0, obs_point, P), dev) & m.pt_valid
+        sigma2 = level_consts(self.cfg.scale, self.cfg.n_levels, dev).sigma2[m.kf_kp_octave[ids].long()]
+        fixed_mask = torch.tensor([k in fixed_ids or not a for k, a in zip(kf_ids, row_active)],
+                                  dtype=torch.bool, device=dev)
+        prob = local_ba.BAProblem(
+            poses=m.kf_pose[ids], points=m.pt_pos, fixed=fixed_mask, point_valid=local_pts,
+            obs_uv=m.kf_kp_uv[ids], obs_point=obs_point,
+            obs_w=torch.where(obs_point >= 0, 1.0 / sigma2, 0.0),
+        )
+        res = local_ba.bundle_adjust(self.cam, prob, iters_stage1=iters[0], iters_stage2=iters[1])
+        safe_ids = torch.where(act, ids, K)
+        return m._replace(
+            kf_pose=ms.set_drop(m.kf_pose, safe_ids, res.poses),
+            pt_pos=torch.where(local_pts[:, None], res.points, m.pt_pos),
+            # Drop observations BA classified as outliers (active rows only).
+            kf_obs_point=ms.set_drop(m.kf_obs_point, safe_ids, torch.where(res.obs_active, obs_point, ms.NO_POINT)),
+        )
+
+    # ------------------------------------------------------------------
+    def get_trajectory(self):
+        ts = np.asarray([t for t, _ in self.trajectory])
+        poses = np.stack([p for _, p in self.trajectory]) if self.trajectory else np.zeros((0, 7))
+        return ts, poses

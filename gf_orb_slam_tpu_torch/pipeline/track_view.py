@@ -36,20 +36,22 @@ def compute_track_view(
     neighbors (plus itself), capped at view_size (lowest ids first)."""
     P = m.pt_capacity
     dev = m.pt_pos.device
-    center = torch.as_tensor(center_kf, device=dev).long()
-    W_row = ms.covisibility(m)[center]
-    w_row = W_row.clone()
-    w_row[center] = 1 << 30
+    c1 = ms.kf_index(center_kf, dev)
+    W_row = ms.covisibility(m).index_select(0, c1)[0]
+    w_row = W_row.index_fill(0, c1, 1 << 30)
     _, kf_ids = top_k_stable(w_row, n_neighbor_kfs)  # ties → lowest keyframe id
     obs = m.kf_obs_point[kf_ids]                      # (n_neighbor_kfs, N)
-    kf_ok = m.kf_valid[kf_ids] & ((W_row[kf_ids] > 0) | (kf_ids == center))
+    kf_ok = m.kf_valid[kf_ids] & ((W_row[kf_ids] > 0) | (kf_ids == c1))
     ok = (obs >= 0) & kf_ok[:, None]
-    member = torch.zeros(P + 1, dtype=torch.bool, device=dev)
-    member[torch.where(ok, obs, P).reshape(-1)] = True
-    member = member[:P] & m.pt_valid
+    member = ms.mark(P, torch.where(ok, obs, P), dev) & m.pt_valid
+    return view_from_members(m, member, view_size)
 
-    order = torch.where(member, torch.arange(P, dtype=torch.int32, device=dev), P)
-    ids = torch.sort(order).values[:view_size]  # the view_size smallest member ids
+
+def view_from_members(m: ms.MapState, member: torch.Tensor, view_size: int) -> TrackView:
+    """The view of the `view_size` smallest member point ids."""
+    P = m.pt_capacity
+    order = torch.where(member, torch.arange(P, dtype=torch.int32, device=member.device), P)
+    ids = torch.sort(order).values[:view_size]
     valid = ids < P
     safe = torch.clamp(ids, max=P - 1).long()
     return TrackView(
@@ -59,4 +61,15 @@ def compute_track_view(
         normal=m.pt_normal[safe],
         min_dist=m.pt_min_dist[safe],
         max_dist=m.pt_max_dist[safe],
+    )
+
+
+def empty_view(view_size: int, pt_capacity: int, device=None) -> TrackView:
+    return TrackView(
+        ids=torch.full((view_size,), pt_capacity, dtype=torch.int32, device=device),
+        valid=torch.zeros(view_size, dtype=torch.bool, device=device),
+        desc=torch.zeros((view_size, 8), dtype=torch.int32, device=device),
+        normal=torch.zeros((view_size, 3), dtype=torch.float32, device=device),
+        min_dist=torch.zeros(view_size, dtype=torch.float32, device=device),
+        max_dist=torch.full((view_size,), float("inf"), dtype=torch.float32, device=device),
     )

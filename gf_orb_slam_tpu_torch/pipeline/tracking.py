@@ -9,7 +9,6 @@ clamped as the reference clamps it (torch raises on out-of-range reads).
 
 from __future__ import annotations
 
-from functools import lru_cache
 from typing import NamedTuple
 
 import torch
@@ -20,6 +19,7 @@ from gf_orb_slam_tpu_torch.gf import observability, selection
 from gf_orb_slam_tpu_torch.mapping import map_state as ms
 from gf_orb_slam_tpu_torch.mapping.frame import FrameData, make_frame
 from gf_orb_slam_tpu_torch.ops import matching
+from gf_orb_slam_tpu_torch.ops.pyramid import level_consts, predict_octave
 from gf_orb_slam_tpu_torch.pipeline.track_view import TrackView
 from gf_orb_slam_tpu_torch.solvers import pose_opt
 
@@ -45,47 +45,17 @@ class TrackResult(NamedTuple):
     ok: torch.Tensor         # () bool
 
 
-class _LevelConsts(NamedTuple):
-    sigma2: torch.Tensor  # (L,) scale^(2l)
-    sf: torch.Tensor      # (L,) scale^l
-    log_s: torch.Tensor   # () log(scale) in float32
-
-
-@lru_cache(maxsize=None)
-def _level_consts(scale: float, n_levels: int, device: torch.device) -> _LevelConsts:
-    # Cached per device: a host→device copy synchronises the stream, so the
-    # step must not make one per frame.
-    f32 = dict(dtype=torch.float32, device=device)
-    return _LevelConsts(
-        sigma2=torch.tensor([scale ** (2 * i) for i in range(n_levels)], **f32),
-        sf=torch.tensor([scale**i for i in range(n_levels)], **f32),
-        log_s=torch.log(torch.tensor(scale, **f32)),
-    )
-
-
-def _predict_octave(dist, max_dist, scale: float, n_levels: int):
-    """Pyramid level predicted from the distance ratio (MapPoint::PredictScale)."""
-    ratio = torch.clamp(max_dist / torch.clamp(dist, min=1e-9), min=1e-9)
-    log_s = _level_consts(scale, n_levels, dist.device).log_s
-    return torch.clamp(torch.ceil(torch.log(ratio) / log_s).to(torch.int32), 0, n_levels - 1)
-
-
 def _scatter_ids(n: int, hit: torch.Tensor, slot: torch.Tensor, ids: torch.Tensor,
                  base: torch.Tensor | None = None) -> torch.Tensor:
     """(n,) int32: `base` (or NO_POINT) with ids[j] written at slot[j] where hit[j]."""
-    out = torch.full((n + 1,), NO_POINT, dtype=torch.int32, device=slot.device)
-    if base is not None:
-        out[:n] = base
-    out[torch.where(hit, slot.long(), n)] = torch.where(hit, ids, 0).to(torch.int32)
-    return out[:n]
+    if base is None:
+        base = torch.full((n,), NO_POINT, dtype=torch.int32, device=slot.device)
+    return ms.set_drop(base, torch.where(hit, slot.long(), n), torch.where(hit, ids, 0))
 
 
 def _scatter_mask(n: int, hit: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
     """(n,) bool, True at slot[j] where hit[j]."""
-    out = torch.zeros(n + 1, dtype=torch.bool, device=slot.device)
-    # index_fill_ takes the scalar as a kernel argument; `out[idx] = True`
-    # copies it to the device first, which synchronises the stream.
-    return out.index_fill_(0, torch.where(hit, slot.long(), n), True)[:n]
+    return ms.mark(n, torch.where(hit, slot.long(), n), slot.device)
 
 
 def track_with_motion_model(
@@ -103,7 +73,7 @@ def track_with_motion_model(
     """Project last frame's map points through the predicted pose, search
     ±radius (octave-scaled), pose-optimize, drop outliers."""
     N = frame.capacity
-    lc = _level_consts(scale, n_levels, pose_pred.device)
+    lc = level_consts(scale, n_levels, pose_pred.device)
     lp = torch.clamp(last_obs_point, min=0).long()
     has_pt = (last_obs_point >= 0) & m.pt_valid[lp]
     pts = m.pt_pos[lp]
@@ -113,7 +83,7 @@ def track_with_motion_model(
     proj_ok = has_pt & front
 
     center = se3.pose_t(se3.inverse(pose_pred))
-    pred_oct = _predict_octave(
+    pred_oct = predict_octave(
         torch.linalg.vector_norm(pts - center[None, :], dim=-1), m.pt_max_dist[lp], scale, n_levels
     )
     rad = radius * lc.sf[pred_oct.long()]
@@ -178,7 +148,7 @@ def track_local_map(
         raise ValueError(f"unknown gf_mode {gf_mode!r}")
     N = frame.capacity
     P = m.pt_capacity
-    lc = _level_consts(scale, n_levels, pose.device)
+    lc = level_consts(scale, n_levels, pose.device)
     safe_ids = torch.clamp(view.ids, max=P - 1).long()
 
     pos_v = m.pt_pos[safe_ids]
@@ -202,7 +172,7 @@ def track_local_map(
     in_range = (dist >= view.min_dist) & (dist <= view.max_dist)
     visible = search_v & front & in_img & in_range & (cos_view > 0.5)
 
-    pred_oct = _predict_octave(dist, view.max_dist, scale, n_levels)
+    pred_oct = predict_octave(dist, view.max_dist, scale, n_levels)
     lvl_sigma2 = lc.sigma2
 
     # --- budgeted GF selection over the visible candidates ---
@@ -351,3 +321,21 @@ def track_frame_fused(
         n_total=r2.n_total,
         next_key=key + torch.arange(2, dtype=key.dtype, device=key.device),  # + [0, 1]
     )
+
+
+def need_new_keyframe(
+    n_inliers: int,
+    n_ref_tracked: int,
+    frames_since_kf: int,
+    frames_since_reloc: int,
+    max_frames: int,
+) -> bool:
+    """Tracking::NeedNewKeyFrame on host scalars: insert when the map is
+    getting stale or tracking weakens against the reference keyframe. (The
+    reference's `min_frames` gap serves its pipelined system only; the
+    synchronous system uses its default, 0.)"""
+    if frames_since_reloc < max_frames:
+        return False
+    c1 = frames_since_kf >= max_frames
+    c2 = n_inliers < 0.9 * n_ref_tracked
+    return (c1 or c2) and n_inliers >= 15

@@ -1,0 +1,144 @@
+"""Command line of the port: run the SLAM system over the synthetic planes
+sequence and write TUM trajectories, the time log and a result JSON, as
+the reference's run_slam.py does.
+
+    python -m gf_orb_slam_tpu_torch.run_slam --synthetic 40 --gf-budget 100 --device cpu
+    python -m gf_orb_slam_tpu_torch.run_slam --synthetic 240 --gf-budget 100 --out results/port
+
+Place recognition (loop closing, relocalization) is not ported; the run
+has it off. Frames are rendered on the run's device and rounded to uint8,
+as the camera would deliver them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+from typing import Callable
+
+import numpy as np
+import torch
+
+from gf_orb_slam_tpu_torch.geometry import se3
+from gf_orb_slam_tpu_torch.geometry.camera import CameraModel
+from gf_orb_slam_tpu_torch.io_utils import evaluation, synthetic
+from gf_orb_slam_tpu_torch.pipeline.system import FrameLog, SlamConfig, SlamSystem
+
+BENCH_CAMERA = CameraModel(fx=458.0, fy=458.0, cx=376.0, cy=240.0, width=752, height=480, fps=20.0)
+
+
+def bench_config(**overrides) -> SlamConfig:
+    """The bench's shipped configuration (bench.py: 800 features, GF subset
+    mode at budget 100, keyframe cadence 10, GF after 10 frames) with place
+    recognition off."""
+    kw = dict(n_features=800, max_frames_between_kf=10, use_gf=True, gf_budget=100, gf_warmup_frames=10,
+              enable_loop_closing=False, enable_relocalization=False)
+    kw.update(overrides)
+    return SlamConfig(**kw)
+
+
+def render_sequence(cam: CameraModel, n_frames: int, scene_seed: int = 0, device=None):
+    """(timestamps (F,), ground-truth T_cw poses (F, 7), frames (F, H, W)
+    float32 rounded to uint8 values, on `device`)."""
+    scene = synthetic.make_scene(seed=scene_seed, device=device)
+    ts, poses_gt = synthetic.trajectory(n_frames, fps=cam.fps)
+    frames = torch.stack([
+        torch.clamp(torch.round(synthetic.render(scene, cam, torch.from_numpy(poses_gt[i]))), 0, 255)
+        for i in range(n_frames)
+    ])
+    return ts, poses_gt, frames
+
+
+def camera_centers(poses_cw) -> np.ndarray:
+    """(F, 3) camera centres of T_cw poses."""
+    p = torch.as_tensor(np.asarray(poses_cw, np.float32))
+    return se3.pose_t(se3.inverse(p)).numpy()
+
+
+def run_sequence(
+    cam: CameraModel,
+    cfg: SlamConfig,
+    ts: np.ndarray,
+    poses_gt: np.ndarray,
+    frames: torch.Tensor,
+    device=None,
+    seed: int = 0,
+    on_frame: Callable[[int, FrameLog], None] | None = None,
+) -> tuple[SlamSystem, dict]:
+    """Process every frame; returns the system and the result summary
+    (frames, tracked, keyframes, map points, timing, ATE against the
+    ground truth when more than 10 frames were tracked)."""
+    system = SlamSystem(cam, cfg, device=device, seed=seed)
+    for i in range(frames.shape[0]):
+        log = system.process(frames[i], float(ts[i]))
+        if on_frame is not None:
+            on_frame(i, log)
+    system.flush()
+    est_ts, est_poses = system.get_trajectory()
+    result = {
+        "frames": int(frames.shape[0]),
+        "tracked": len(est_poses),
+        "keyframes": int(system.n_kf),
+        "keyframes_valid": int(system.map.kf_valid.sum()),
+        "map_points": int(system.map.pt_valid.sum()),
+        "loops_closed": system.n_loops_closed,
+        "timing": system.time_log.summary(),
+    }
+    if len(est_poses) > 10:
+        gt_by_t = {round(float(t), 6): c for t, c in zip(ts, camera_centers(poses_gt))}
+        gt_pos = np.stack([gt_by_t[round(float(t), 6)] for t in est_ts])
+        result["ate_rmse_m"] = evaluation.ate_rmse(camera_centers(est_poses), gt_pos)
+    return system, result
+
+
+def write_outputs(system: SlamSystem, result: dict, out: str) -> None:
+    """`{out}_AllFrameTrajectory.txt`, `_KeyFrameTrajectory.txt`,
+    `_TimeLog.txt` and `_result.json`."""
+    os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+    est_ts, est_poses = system.get_trajectory()
+    evaluation.write_tum_trajectory(f"{out}_AllFrameTrajectory.txt", est_ts, est_poses)
+    kf_valid = system.map.kf_valid.cpu().numpy()
+    kf_ts = system.map.kf_timestamp.cpu().numpy()[kf_valid]
+    kf_poses = system.map.kf_pose.cpu().numpy()[kf_valid]
+    order = np.argsort(kf_ts)
+    evaluation.write_tum_trajectory(f"{out}_KeyFrameTrajectory.txt", kf_ts[order], kf_poses[order])
+    system.time_log.save(f"{out}_TimeLog.txt")
+    with open(f"{out}_result.json", "w") as f:
+        json.dump(result, f, indent=2, default=float)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--synthetic", type=int, required=True, help="run N frames of the synthetic planes scene")
+    ap.add_argument("--gf-budget", type=int, default=0, help="good-feature budget (0 = GF off)")
+    ap.add_argument("--n-features", type=int, default=0, help="override the ORB feature count")
+    ap.add_argument("--out", default="results/port", help="output prefix")
+    ap.add_argument("--device", default="cuda" if torch.cuda.is_available() else "cpu")
+    ap.add_argument("--seed", type=int, default=0, help="initializer sampling seed")
+    ap.add_argument("--scene-seed", type=int, default=0, help="synthetic scene texture seed")
+    args = ap.parse_args(argv)
+
+    cam = BENCH_CAMERA
+    cfg = SlamConfig(enable_loop_closing=False, enable_relocalization=False)
+    if args.n_features:
+        cfg.n_features = args.n_features
+    if args.gf_budget > 0:
+        cfg.use_gf = True
+        cfg.gf_budget = args.gf_budget
+    device = torch.device(args.device)
+    ts, poses_gt, frames = render_sequence(cam, args.synthetic, args.scene_seed, device)
+
+    def progress(i, log):
+        if (i + 1) % 50 == 0:
+            print(f"[{i + 1}] {log.state} inliers={log.n_inliers}", file=sys.stderr)
+
+    system, result = run_sequence(cam, cfg, ts, poses_gt, frames, device, args.seed, on_frame=progress)
+    write_outputs(system, result, args.out)
+    print(json.dumps(result, indent=2, default=float))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

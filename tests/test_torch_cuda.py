@@ -1,6 +1,7 @@
 """Tests of the port that need a CUDA GPU: the hand-written Hamming kernel
-against its plain version, and the tracking step on the card against the
-reference's recorded outputs. They skip where there is no GPU.
+against its plain version, the tracking step on the card against the
+reference's recorded outputs, and the host synchronisations of the tracking
+stages and of the keyframe insertion. They skip where there is no GPU.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only the port's dependencies:
@@ -22,6 +23,7 @@ from gf_orb_slam_tpu_torch.kernels import hamming
 from gf_orb_slam_tpu_torch.mapping.frame import make_frame
 from gf_orb_slam_tpu_torch.ops import matching
 from gf_orb_slam_tpu_torch.ops.orb import OrbConfig
+from gf_orb_slam_tpu_torch.pipeline import local_mapping
 from gf_orb_slam_tpu_torch.pipeline import track_view as tv
 from gf_orb_slam_tpu_torch.pipeline import tracking
 
@@ -42,7 +44,8 @@ def words(rng, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nq,nt", [(1, 1), (31, 33), (127, 129), (4096, 800), (800, 800), (0, 8), (8, 0)])
+@pytest.mark.parametrize("nq,nt", [(1, 1), (31, 33), (127, 129), (4096, 800), (800, 800), (1600, 800),
+                                   (1600, 1600), (2048, 1600), (0, 8), (8, 0)])
 def test_kernel_bit_identical_to_plain(cuda, nq, nt):
     rng = np.random.default_rng(nq * 10007 + nt)
     q, t = snapshot.to_tensor(words(rng, nq), cuda), snapshot.to_tensor(words(rng, nt), cuda)
@@ -121,3 +124,34 @@ def test_tracking_stages_never_synchronise(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert bool(r2.ok)
+
+
+@pytest.mark.cuda
+def test_insert_keyframe_fused_never_synchronises(cuda):
+    """The whole keyframe insertion (triangulation, culling, fusion, BA,
+    descriptors, keyframe culling, the new view) makes no host sync."""
+    z, meta, m, view, state = load_fixture(cuda)
+    cam, gf = CameraModel(**meta["camera"]), meta["gf"]
+    r = tracking.track_frame_fused(
+        cam, OrbConfig(**meta["orb_config"]), m, view, snapshot.to_tensor(z["frames"][0], cuda).float(), *state,
+        meta["dt"], torch.tensor([0, 1], device=cuda), gf_budget=gf["gf_budget"], use_gf=True,
+        gf_mode=gf["gf_mode"], gf_batch=gf["gf_batch"],
+    )
+    pad = m.kp_capacity - r.frame_uv.shape[0]
+
+    def pz(a, fill=0):
+        return torch.cat([a, a.new_full((pad,) + a.shape[1:], fill)])
+
+    args = (cam, m._replace(pt_visible=r.pt_visible, pt_found=r.pt_found), r.pose, 132, 6.6,
+            pz(r.frame_uv), pz(r.frame_octave), pz(r.frame_angle), pz(r.frame_desc), pz(r.frame_valid, False),
+            pz(r.obs_point, -1))
+    first = local_mapping.insert_keyframe_fused(*args)  # caches device constants
+    torch.cuda.synchronize()
+    before = hamming.LAUNCHES
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = local_mapping.insert_keyframe_fused(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert hamming.LAUNCHES - before == 8  # 3 triangulation + 5 fusion matches
+    assert int(again.kf_id) == int(first.kf_id) == 14

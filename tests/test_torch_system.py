@@ -1,0 +1,229 @@
+"""The port's system layer against the JAX reference: the synthetic scene
+and renderer, the copied host-side evaluation and timing code, the keyframe
+decision, the refusals of what is not ported, and the first 20 frames of the
+bench sequence at full size through `SlamSystem.process` with the
+reference's recorded initializer samples injected.
+
+The 20-frame run is held to the reference's recorded run (system fixture,
+tools/make_torch_system_fixture.py): the same first WORKING frame (4), the
+same insertion frames (4, 5, 15), and every pose within 2e-3 rad and 5e-3
+map units of the reference's."""
+
+import json
+import os
+import types
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gf_orb_slam_tpu.geometry.camera import CameraModel as JCam
+from gf_orb_slam_tpu.io_utils import evaluation as jeval
+from gf_orb_slam_tpu.io_utils import synthetic as jsyn
+from gf_orb_slam_tpu.io_utils import timing as jtiming
+from gf_orb_slam_tpu.pipeline import tracking as jtrk
+from gf_orb_slam_tpu_torch import run_slam
+from gf_orb_slam_tpu_torch.io_utils import evaluation, synthetic, timing
+from gf_orb_slam_tpu_torch.pipeline import system, tracking
+from gf_orb_slam_tpu_torch.solvers import initializer
+
+SYSTEM_FIXTURE = os.path.join(os.path.dirname(__file__), "..", "gf_orb_slam_tpu_torch", "data",
+                              "system_fixture.npz")
+CAM = run_slam.BENCH_CAMERA
+N_FRAMES = 20
+
+
+@pytest.fixture(scope="module")
+def fx():
+    with np.load(SYSTEM_FIXTURE) as z:
+        return {k: z[k] for k in z.files}
+
+
+def rot_err(q1, q2):
+    d = abs(float(np.dot(q1 / np.linalg.norm(q1), q2 / np.linalg.norm(q2))))
+    return 2.0 * np.arccos(min(1.0, d))
+
+
+# ---------------------------------------------------------------------------
+# Scene, renderer, trajectory
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("seed,tex_size", [(0, 1024), (5, 256)])
+def test_make_scene_textures_exact(seed, tex_size):
+    got = synthetic.make_scene(seed=seed, tex_size=tex_size)
+    want = jsyn.make_scene(seed=seed, tex_size=tex_size)
+    np.testing.assert_array_equal(got.textures.numpy(), np.asarray(want.textures))
+    for k in ("depths", "centers", "extents"):
+        np.testing.assert_array_equal(getattr(got, k).numpy(), np.asarray(getattr(want, k)))
+
+
+def test_trajectory_matches_reference():
+    ts, poses = synthetic.trajectory(240, fps=20.0)
+    jts, jposes = jsyn.trajectory(240, fps=20.0)
+    np.testing.assert_array_equal(ts, jts)
+    np.testing.assert_allclose(poses, jposes, atol=1e-6, rtol=0)
+
+
+def test_render_matches_reference():
+    scene, jscene = synthetic.make_scene(seed=0), jsyn.make_scene(seed=0)
+    _, poses = jsyn.trajectory(240, fps=20.0)
+    for i in (0, 77, 191):
+        got = np.clip(np.round(synthetic.render(scene, CAM, torch.from_numpy(poses[i])).numpy()), 0, 255)
+        want = np.clip(np.round(np.asarray(jsyn.render(jscene, JCam(**CAM._asdict()), jnp.asarray(poses[i])))), 0, 255)
+        diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+        assert (diff == 0).mean() >= 0.999 and diff.max() <= 1, (i, (diff == 0).mean(), diff.max())
+
+
+# ---------------------------------------------------------------------------
+# Copied host code
+# ---------------------------------------------------------------------------
+
+
+def test_evaluation_copy_equal(rng, tmp_path):
+    est = rng.normal(0, 1, (50, 3))
+    gt = 2.5 * est @ np.linalg.qr(rng.normal(0, 1, (3, 3)))[0].T + [1.0, -2.0, 0.5] + rng.normal(0, 0.01, (50, 3))
+    for with_scale in (True, False):
+        a, b = evaluation.umeyama_alignment(est, gt, with_scale), jeval.umeyama_alignment(est, gt, with_scale)
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+        assert evaluation.ate_rmse(est, gt, with_scale) == jeval.ate_rmse(est, gt, with_scale)
+    _, poses = jsyn.trajectory(30, fps=20.0)
+    ts = np.arange(30) / 20.0
+    evaluation.write_tum_trajectory(str(tmp_path / "port.txt"), ts, poses)
+    jeval.write_tum_trajectory(str(tmp_path / "ref.txt"), ts, poses)
+    got, want = np.loadtxt(tmp_path / "port.txt"), np.loadtxt(tmp_path / "ref.txt")
+    np.testing.assert_allclose(got, want, atol=2e-6, rtol=0)
+
+
+def test_timing_copy_equal(tmp_path, monkeypatch):
+    ticks = np.arange(0.0, 100.0, 0.0125).tolist()
+
+    def drive(mod):
+        # A scripted clock seen by this module alone.
+        it = iter(ticks)
+        monkeypatch.setattr(mod, "time", types.SimpleNamespace(perf_counter=lambda: next(it)))
+        log = mod.TimeLog()
+        for f in range(6):
+            log.start_frame(f * 0.05)
+            log.begin("extraction")
+            log.end()
+            log.begin("local_map_track")
+            if f % 3 == 0:
+                log.begin("keyframe_insert")
+                log.end("keyframe_insert")
+            log.end("local_map_track")
+            log.end_frame(lmk_tracked=f, lmk_inlier=2 * f)
+        log.end()  # after the last frame: nothing to charge
+        log.save(str(tmp_path / f"{mod.__name__}.txt"))
+        monkeypatch.undo()
+        return log.summary(), (tmp_path / f"{mod.__name__}.txt").read_text()
+
+    assert drive(timing) == drive(jtiming)
+
+
+# ---------------------------------------------------------------------------
+# Keyframe decision and refusals
+# ---------------------------------------------------------------------------
+
+
+def test_need_new_keyframe_grid():
+    for n_inl in (0, 14, 15, 60, 89, 90, 200):
+        for n_ref in (0, 50, 100, 300):
+            for since_kf in (0, 1, 9, 10, 12):
+                for since_reloc in (3, 10, 10**9):
+                    args = (n_inl, n_ref, since_kf, since_reloc, 10)
+                    assert tracking.need_new_keyframe(*args) == jtrk.need_new_keyframe(*args, min_frames=0), args
+
+
+@pytest.mark.parametrize("field", ["enable_loop_closing", "enable_relocalization"])
+def test_system_refuses_place_recognition(field):
+    cfg = run_slam.bench_config(**{field: True})
+    with pytest.raises(NotImplementedError, match="ROADMAP slice 3"):
+        system.SlamSystem(CAM, cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        system.SlamSystem(CAM)  # the reference's defaults turn both on
+
+
+def test_system_refuses_preset_vocabulary_and_saved_maps():
+    s = system.SlamSystem(CAM, run_slam.bench_config())
+    with pytest.raises(NotImplementedError, match="ROADMAP slice 3"):
+        s.set_vocabulary(object())
+    with pytest.raises(NotImplementedError, match="ROADMAP slice 3"):
+        s.load_map_state(object())
+    assert not hasattr(system.SlamConfig(), "pipelined")
+
+
+# ---------------------------------------------------------------------------
+# The first 20 bench frames through SlamSystem.process
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def run20(fx):
+    meta = json.loads(str(fx["meta"]))
+    assert meta["scene_seed"] == 0 and meta["summary"]["first_working"] == 4
+    scene = synthetic.make_scene(seed=meta["scene_seed"])
+    ts, poses_gt = synthetic.trajectory(meta["trajectory_frames"], fps=CAM.fps)
+    frames = torch.stack([torch.clamp(torch.round(synthetic.render(scene, CAM, torch.from_numpy(poses_gt[i]))), 0, 255)
+                          for i in range(N_FRAMES)])
+    samples = [torch.from_numpy(s).long() for s in fx["init_samples"]]
+    calls = []
+
+    def recorded(matched, n_hypotheses, generator):
+        calls.append(n_hypotheses)
+        return samples[len(calls) - 1]
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(initializer, "sample_hypotheses", recorded)
+    try:
+        s, result = run_slam.run_sequence(CAM, run_slam.bench_config(), ts[:N_FRAMES], poses_gt[:N_FRAMES], frames,
+                                          device="cpu", seed=0)
+    finally:
+        mp.undo()
+    return s, result, calls
+
+
+def test_run20_initializes_at_the_reference_frame(fx, run20):
+    s, _, calls = run20
+    states = [lg.state for lg in s.logs]
+    assert states.index("WORKING") == int(np.flatnonzero(fx["state"] == system.State.WORKING.value)[0]) == 4
+    assert len(calls) == 4 and calls == [200] * 4  # one draw per attempt, as the reference
+    assert all(st == "WORKING" for st in states[4:])
+
+
+def test_run20_inserts_at_the_reference_frames(fx, run20):
+    s, _, _ = run20
+    inserted = [i for i, lg in enumerate(s.logs) if "keyframe_insert" in lg.timing_ms]
+    ref = [int(f) for f in fx["insert_frames"] if f < N_FRAMES]
+    assert ref == [4, 5, 15] and [4] + inserted == ref
+    assert s.n_kf == 4
+
+
+def test_run20_poses_match_reference(fx, run20):
+    s, result, _ = run20
+    assert result["tracked"] == int(np.isfinite(fx["pose"][:N_FRAMES, 0]).sum()) == 16
+    for t, p in s.trajectory:
+        i = int(round(t * CAM.fps))
+        ref = fx["pose"][i]
+        assert np.isfinite(p).all() and p.shape == (7,)
+        assert rot_err(p[:4], ref[:4]) <= 2e-3, i
+        assert np.linalg.norm(p[4:] - ref[4:]) <= 5e-3, i
+
+
+def test_write_outputs(run20, tmp_path):
+    s, result, _ = run20
+    run_slam.write_outputs(s, result, str(tmp_path / "run"))
+    allf = np.loadtxt(tmp_path / "run_AllFrameTrajectory.txt")
+    kf = np.loadtxt(tmp_path / "run_KeyFrameTrajectory.txt")
+    assert allf.shape == (16, 8) and kf.shape == (4, 8)
+    assert json.loads((tmp_path / "run_result.json").read_text())["tracked"] == 16
+    assert (tmp_path / "run_TimeLog.txt").read_text().startswith("#timestamp extraction")
+
+
+def test_cli_runs_on_cpu(tmp_path, capsys):
+    assert run_slam.main(["--synthetic", "6", "--gf-budget", "100", "--device", "cpu",
+                          "--out", str(tmp_path / "cli")]) == 0
+    result = json.loads((tmp_path / "cli_result.json").read_text())
+    assert result["frames"] == 6 and result["loops_closed"] == 0
