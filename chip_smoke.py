@@ -7,16 +7,29 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
 
 1. device  — requires CUDA; torch/CUDA versions, the card, and nvidia-smi's
              name and power limit (also printed as a raw line);
-2. build   — builds csrc/*.cu with nvcc for sm_90a (or loads the build);
-3. kernel  — the Hamming kernel against its plain PyTorch version on the card
-             at the shapes of the tracking path (4096×800, 800×800, and
-             1600×800 on the first frame after initialization, whose last
-             observations are the 1600-wide second keyframe's), the
-             initialization and triangulation matches (1600×1600) and the
-             fusion matches (2048×1600), and edge cases, bit for bit; the
-             median CUDA-event time of each at the five path shapes.
-             Phases 4 and 5 record the shapes they launch the kernel at,
-             and the run fails if one of them was not checked here;
+2. build   — builds csrc/*.cu with nvcc for sm_90a (or loads the build) and
+             prints ptxas's registers, shared memory and spills per kernel
+             and the tensor-core opcodes in each kernel's SASS;
+3. kernel  — the Hamming kernels against the plain PyTorch version on the
+             card, bit for bit: the tensor-core kernel at the shapes of the
+             tracking path (4096×800, 800×800, and 1600×800 on the first
+             frame after initialization, whose last observations are the
+             1600-wide second keyframe's), the initialization and
+             triangulation matches (1600×1600) and the fusion matches
+             (2048×1600), ragged and empty shapes, the kernel's 64×32 tile
+             at its boundaries (tile −1, exact and +1 in both dimensions,
+             and three tiles +1 rows by three tiles −1 columns), all-zero /
+             all-ones descriptors and an unaligned `out=`; the CUDA-core baseline
+             kernel at the path, ragged and empty shapes. Then, at the five
+             path shapes, the device time of each kernel (GRAPH_REPS
+             launches captured in one CUDA graph, each writing the next
+             output of a ring larger than the 50 MB L2; turns old, new, new,
+             old), the library yardstick
+             (`torch._int_mm` on ±1 int8 operands, unpacked before timing),
+             the plain version (no yardstick), the bound, and the wrapper's
+             host µs per call; and the one-block floor of both kernels. The
+             wrapper counts its launches by shape; the run fails if phase 4
+             or 5 launched it at a shape not checked here;
 4. main    — the per-frame tracking step (`track_frame_fused`, GF subset mode,
              budget 100, batch 10) chained over the fixture's frames on the
              reference's map, each frame checked against the reference's
@@ -30,18 +43,28 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              recorded run (first WORKING frame, tracked and LOST frames,
              keyframes inserted, ATE); per-frame times, Hamming launches per
              insertion, host syncs per frame, and one insertion re-run under
-             PyTorch's sync debug mode (no sync allowed).
+             PyTorch's sync debug mode (no sync allowed);
+6. profile — the profiler's device duration of both kernels at 4096×800, a
+             cross-check of phase 3's graph times, and the host µs of one
+             small eager op before and after the profiler ran. It comes
+             last, so that the profiler cannot slow the host's launches in
+             the timed phases.
 
-Then the kernel table line and, last, {"ok": true, "device": {...}}. The
-fixtures (gf_orb_slam_tpu_torch/data/track_fixture.npz and
-system_fixture.npz) are written from the JAX reference by
-tools/make_torch_fixture.py and tools/make_torch_system_fixture.py.
+Then the kernel's launches by shape, the kernel table line and, last,
+{"ok": true, "device": {...}}. The fixtures
+(gf_orb_slam_tpu_torch/data/track_fixture.npz and system_fixture.npz) are
+written from the JAX reference by tools/make_torch_fixture.py and
+tools/make_torch_system_fixture.py.
 """
 
 from __future__ import annotations
 
+import collections
 import json
+import math
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -51,7 +74,15 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(REPO, "gf_orb_slam_tpu_torch", "data", "track_fixture.npz")
 SYSTEM_FIXTURE = os.path.join(REPO, "gf_orb_slam_tpu_torch", "data", "system_fixture.npz")
 TIMED_SHAPES = [(4096, 800), (800, 800), (1600, 800), (1600, 1600), (2048, 1600)]
-KERNEL_SHAPES = TIMED_SHAPES + [(1000, 777), (1, 1), (0, 8)]
+KERNEL_SHAPES = TIMED_SHAPES + [(1000, 777), (1, 1), (0, 8), (8, 0)]
+# Kernel timing.
+GRAPH_REPS = 50             # kernel launches captured in one CUDA graph
+GRAPH_REPLAYS = 7           # timed replays; the median is kept
+RING_BYTES = 100e6          # outputs cycled through per graph: twice the 50 MB L2
+HOST_CALLS = 1000           # wrapper calls timed on the host clock
+FLOOR_SHAPE = (16, 32)      # one block of either kernel
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 peak bandwidth (NVIDIA datasheet)
+INT8_OPS_PER_S = 1979e12    # H100 SXM dense int8 tensor-core peak, the binary ops' nearest entry
 # Slice tolerances against the reference's recorded outputs.
 ROT_TOL_RAD = 1e-3
 TRANS_TOL = 1e-3        # map units (the map is median-depth normalised at init)
@@ -76,24 +107,230 @@ def nvidia_smi_line() -> str:
     return out[0].strip()
 
 
-def median_ms(fn, reps: int = 11, inner: int = 20) -> float:
-    """Median over `reps` samples of CUDA-event time per call, each sample
-    averaging `inner` back-to-back calls."""
+def sass_mma_opcodes(lib_path) -> dict | None:
+    """Tensor-core opcodes (HMMA/IMMA/BMMA…) counted per kernel in the built
+    library's SASS, or None where cuobjdump is not installed."""
+    tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True, timeout=120, check=True).stdout
+    counts: dict = {}
+    fn = None
+    for line in sass.splitlines():
+        if m := re.search(r"Function : (\S+)", line):
+            fn = m.group(1)
+            counts[fn] = collections.Counter()
+        elif fn and (m := re.search(r"\b([A-Z]MMA[.\w]*)", line)):
+            counts[fn][m.group(1)] += 1
+    return {k: dict(v) for k, v in counts.items()}
+
+
+def graph_ms(call, ring, reps: int = GRAPH_REPS) -> float:
+    """Device ms per call: `reps` calls captured in one CUDA graph, call i
+    writing ring[i % len(ring)]; median over GRAPH_REPLAYS replays timed with
+    CUDA events."""
     import torch
 
-    for _ in range(3):
-        fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture (first launch loads the kernel)
+        for i in range(3):
+            call(ring[i % len(ring)])
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            call(ring[i % len(ring)])
+    graph.replay()
     torch.cuda.synchronize()
     samples = []
-    for _ in range(reps):
+    for _ in range(GRAPH_REPLAYS):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
-        for _ in range(inner):
-            fn()
+        graph.replay()
         b.record()
         b.synchronize()
-        samples.append(a.elapsed_time(b) / inner)
+        samples.append(a.elapsed_time(b) / reps)
+    del graph
     return statistics.median(samples)
+
+
+def host_us(call, batches: int = 5, n: int = HOST_CALLS // 5) -> float:
+    """Host µs per call, the median over batches of n calls with no
+    synchronisation inside (the device finishes each call faster than the
+    host issues the next)."""
+    import torch
+
+    call()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(batches):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            call()
+        samples.append((time.perf_counter() - t0) / n * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(samples)
+
+
+def profiler_us(calls: dict, ring, n: int = 20) -> dict:
+    """Per name, the profiler's mean device µs of the kernels whose name
+    contains it, over n calls each writing the next output of the ring."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for fn in calls.values():
+            for i in range(n):
+                fn(ring[i % len(ring)])
+        torch.cuda.synchronize()
+    out = {}
+    for name in calls:
+        evs = [e for e in prof.key_averages() if name in e.key]
+        out[name] = {"kernels": [e.key for e in evs], "count": sum(e.count for e in evs),
+                     "device_us": (sum(e.device_time * e.count for e in evs) / max(1, sum(e.count for e in evs)))
+                     if evs else None}
+    return out
+
+
+def pm1_int8(desc):
+    """(N, 8) int32 words → (N, 256) int8 of 1 − 2·bit, the operands of the
+    library yardstick (A·Bᵀ = 256 − 2·H)."""
+    import torch
+
+    shifts = torch.arange(32, device=desc.device, dtype=torch.int32)
+    bits = ((desc[:, :, None] >> shifts) & 1).reshape(desc.shape[0], 256)
+    return (1 - 2 * bits).to(torch.int8)
+
+
+def bound(nq: int, nt: int) -> tuple[float, str, int]:
+    """(bound ms, what bounds it, bytes): inputs read once and the int32
+    output written once at the HBM rate, against 2·256 binary ops per pair at
+    the int8 tensor-core rate."""
+    nbytes = 32 * (nq + nt) + 4 * nq * nt
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * 256 * nq * nt / INT8_OPS_PER_S * 1e3
+    return (bytes_ms, "bytes", nbytes) if bytes_ms >= ops_ms else (ops_ms, "operations", nbytes)
+
+
+def kernel_phase(dev) -> dict:
+    """Phase 3: both Hamming kernels against the plain version, bit for bit,
+    then their device times at the path shapes. Raises on any difference."""
+    import numpy as np
+    import torch
+
+    from gf_orb_slam_tpu_torch.io_utils import snapshot
+    from gf_orb_slam_tpu_torch.kernels import hamming
+    from gf_orb_slam_tpu_torch.ops import matching
+
+    rng = np.random.default_rng(0)
+
+    def words(n):
+        return snapshot.to_tensor(rng.integers(0, 2**32, size=(n, 8), dtype=np.uint32), dev)
+
+    def check(label, got, q, t):
+        want = matching.hamming_matrix_torch(q, t)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not torch.equal(got, want):
+            err = int((got - want).abs().max()) if got.shape == want.shape and got.numel() else None
+            raise AssertionError(f"hamming kernel differs from the plain version, {label} {tuple(want.shape)}: max err {err}")
+
+    checked = []
+    for nq, nt in KERNEL_SHAPES:
+        q, t = words(nq), words(nt)
+        check("tensor-core", hamming.hamming_matrix_cuda(q, t), q, t)
+        check("CUDA-core", hamming.hamming_matrix_simt_cuda(q, t), q, t)
+        checked.append((nq, nt))
+    boundary = []
+    bm, bn = hamming.BM, hamming.BN
+    for nq in (bm - 1, bm, bm + 1, 3 * bm + 1):
+        for nt in (bn - 1, bn, bn + 1, 3 * bn - 1):
+            q, t = words(nq), words(nt)
+            check(f"tile {bm}x{bn}", hamming.hamming_matrix_cuda(q, t), q, t)
+            boundary.append((nq, nt))
+    # All-zero and all-ones descriptors: distances 0 and 256 only.
+    q = torch.zeros((130, 8), dtype=torch.int32, device=dev)
+    q[1::2] = -1
+    t = torch.zeros((70, 8), dtype=torch.int32, device=dev)
+    t[::3] = -1
+    got = hamming.hamming_matrix_cuda(q, t)
+    check("all-zero/all-ones", got, q, t)
+    if set(got.unique().tolist()) != {0, 256}:
+        raise AssertionError("all-zero / all-ones descriptors gave distances other than 0 and 256")
+    # A row pitch that is not a multiple of 4 and an output that is not 16-byte aligned.
+    q, t = words(300), words(600)
+    flat = torch.empty(300 * 600 + 1, dtype=torch.int32, device=dev)
+    check("unaligned out", hamming.hamming_matrix_cuda(q, t, out=flat[1:].view(300, 600)), q, t)
+
+    times = {}
+    for nq, nt in TIMED_SHAPES:
+        q, t = words(nq), words(nt)
+        ring = [torch.empty((nq, nt), dtype=torch.int32, device=dev)
+                for _ in range(max(2, math.ceil(RING_BYTES / (4 * nq * nt))))]
+        new = lambda o: hamming.hamming_matrix_cuda(q, t, out=o)  # noqa: E731
+        old = lambda o: hamming.hamming_matrix_simt_cuda(q, t, out=o)  # noqa: E731
+        o1, n1, n2, o2 = graph_ms(old, ring), graph_ms(new, ring), graph_ms(new, ring), graph_ms(old, ring)
+        # Library yardstick: one int8 GEMM of the ±1 unpacked descriptors (unpacking not timed).
+        a, b = pm1_int8(q), pm1_int8(t).t()
+        lib = (256 - torch._int_mm(a, b)) // 2
+        check("library yardstick", lib, q, t)
+        lib_ms = graph_ms(lambda o: torch._int_mm(a, b, out=o), ring)
+        plain_ms = graph_ms(lambda o: matching.hamming_matrix_torch(q, t), ring, reps=10)
+        host = host_us(lambda: hamming.hamming_matrix_cuda(q, t))
+        b_ms, b_by, nbytes = bound(nq, nt)
+        ms = min(n1, n2)
+        cfg = hamming.launch_config(nq, nt)
+        times[f"{nq}x{nt}"] = {
+            "ms": ms, "ms_runs": [n1, n2], "old_ms": min(o1, o2), "old_ms_runs": [o1, o2],
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "fraction_of_bound": b_ms / ms,
+            "old_fraction_of_bound": b_ms / min(o1, o2), "library_ms": lib_ms, "plain_ms": plain_ms,
+            "host_us": host, "tile": [cfg.bm, cfg.bn], "blocks": cfg.blocks, "ring_outputs": len(ring),
+        }
+        del ring
+    # The yardstick's cuBLAS calls left a workspace for each stream they ran on
+    # (each warm-up stream and the capture stream); free them, so that phase 5's
+    # device memory is the path's own.
+    torch._C._cuda_clearCublasWorkspaces()
+    # The floor: one block (FLOOR_SHAPE), the launch and one block's latency chain.
+    q, t = words(FLOOR_SHAPE[0]), words(FLOOR_SHAPE[1])
+    ring = [torch.empty(FLOOR_SHAPE, dtype=torch.int32, device=dev) for _ in range(2)]
+    floor = {"shape": FLOOR_SHAPE,
+             "ms": graph_ms(lambda o: hamming.hamming_matrix_cuda(q, t, out=o), ring),
+             "old_ms": graph_ms(lambda o: hamming.hamming_matrix_simt_cuda(q, t, out=o), ring)}
+    return {"phase": "kernel", "name": "hamming_matrix", "shapes": checked, "tile_boundary_shapes": boundary,
+            "bit_identical": True, "max_abs_err": 0, "graph_reps": GRAPH_REPS, "times": times,
+            "one_block_floor": floor}
+
+
+def profile_phase(dev) -> dict:
+    """Phase 6: the profiler's device µs of both Hamming kernels at the
+    first timed shape, and the host µs of a small eager op before and after
+    the profiler ran."""
+    import numpy as np
+    import torch
+
+    from gf_orb_slam_tpu_torch.io_utils import snapshot
+    from gf_orb_slam_tpu_torch.kernels import hamming
+
+    rng = np.random.default_rng(1)
+    nq, nt = TIMED_SHAPES[0]
+    q, t = (snapshot.to_tensor(rng.integers(0, 2**32, size=(n, 8), dtype=np.uint32), dev) for n in (nq, nt))
+    ring = [torch.empty((nq, nt), dtype=torch.int32, device=dev)
+            for _ in range(max(2, math.ceil(RING_BYTES / (4 * nq * nt))))]
+    x = torch.zeros(16, device=dev)
+    before = host_us(lambda: x.add_(1))
+    prof = profiler_us({"hamming_mma_kernel": lambda o: hamming.hamming_matrix_cuda(q, t, out=o),
+                        "hamming_simt_kernel": lambda o: hamming.hamming_matrix_simt_cuda(q, t, out=o)}, ring)
+    return {"phase": "profile", "shape": [nq, nt], "profiler": prof,
+            "eager_op_host_us_before_profiler": before, "eager_op_host_us_after_profiler": host_us(lambda: x.add_(1))}
+
+
+def reset_launch_counts() -> None:
+    from gf_orb_slam_tpu_torch.kernels import hamming
+
+    hamming.LAUNCHES = 0
+    hamming.LAUNCHES_BY_SHAPE.clear()
 
 
 def count_host_syncs(fn) -> int:
@@ -141,7 +378,6 @@ def main() -> int:
     from gf_orb_slam_tpu_torch.geometry.camera import CameraModel
     from gf_orb_slam_tpu_torch.io_utils import snapshot
     from gf_orb_slam_tpu_torch.kernels import _build, hamming
-    from gf_orb_slam_tpu_torch.ops import matching
     from gf_orb_slam_tpu_torch.ops.orb import OrbConfig
     from gf_orb_slam_tpu_torch.pipeline import track_view as tv
     from gf_orb_slam_tpu_torch.pipeline import tracking
@@ -160,37 +396,13 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     emit({"phase": "build", "library": os.path.relpath(_build.library_path(), REPO),
-          "nvcc_seconds": _build.build_seconds, "seconds": time.perf_counter() - t0})
+          "nvcc_seconds": _build.build_seconds, "seconds": time.perf_counter() - t0,
+          "ptxas": _build.ptxas_kernels(), "sass_tensor_core_opcodes": sass_mma_opcodes(_build.library_path())})
 
-    # --- 3. kernel against its plain version ---
-    rng = np.random.default_rng(0)
-    max_err = 0
-    for nq, nt in KERNEL_SHAPES:
-        qn = rng.integers(0, 2**32, size=(nq, 8), dtype=np.uint32)
-        tn = rng.integers(0, 2**32, size=(nt, 8), dtype=np.uint32)
-        q = snapshot.to_tensor(qn, dev)
-        t = snapshot.to_tensor(tn, dev)
-        got = hamming.hamming_matrix_cuda(q, t)
-        torch.cuda.synchronize()
-        want = matching.hamming_matrix_torch(q, t)
-        torch.cuda.synchronize()
-        err = int((got - want).abs().max()) if got.numel() else 0
-        if got.shape != (nq, nt) or not torch.equal(got, want):
-            raise AssertionError(f"hamming kernel differs from the plain version at ({nq},{nt}): max err {err}")
-        max_err = max(max_err, err)
-    times = {}
-    for nq, nt in TIMED_SHAPES:
-        q = snapshot.to_tensor(rng.integers(0, 2**32, size=(nq, 8), dtype=np.uint32), dev)
-        t = snapshot.to_tensor(rng.integers(0, 2**32, size=(nt, 8), dtype=np.uint32), dev)
-        # Turns: plain, kernel, kernel, plain.
-        p1 = median_ms(lambda: matching.hamming_matrix_torch(q, t))
-        k1 = median_ms(lambda: hamming.hamming_matrix_cuda(q, t))
-        k2 = median_ms(lambda: hamming.hamming_matrix_cuda(q, t))
-        p2 = median_ms(lambda: matching.hamming_matrix_torch(q, t))
-        times[f"{nq}x{nt}"] = {"kernel_ms": min(k1, k2), "plain_ms": min(p1, p2),
-                               "kernel_ms_runs": [k1, k2], "plain_ms_runs": [p1, p2]}
-    emit({"phase": "kernel", "name": "hamming_matrix", "shapes": KERNEL_SHAPES,
-          "bit_identical": True, "max_abs_err": max_err, "times": times})
+    # --- 3. kernels against the plain version, and their device times ---
+    kernel_rec = kernel_phase(dev)
+    kernel_rec.update(device=kind, nvidia_smi=smi)
+    emit(kernel_rec)
 
     # --- 4. main path ---
     with np.load(FIXTURE) as zf:
@@ -217,17 +429,6 @@ def main() -> int:
             use_gf=gf["use_gf"], gf_mode=gf["gf_mode"], gf_batch=gf["gf_batch"],
         )
 
-    # Record every shape the path launches the kernel at (phases 4 and 5).
-    path_shapes = set()
-    kernel = hamming.hamming_matrix_cuda
-
-    def recording_kernel(q, t):
-        if q.shape[0] and t.shape[0]:
-            path_shapes.add((q.shape[0], t.shape[0]))
-        return kernel(q, t)
-
-    hamming.hamming_matrix_cuda = recording_kernel
-
     step(frames[0], *state0, key0)  # warm-up: first-call allocations, library load, cached constants
     torch.cuda.synchronize()
     # The step's one intended host sync is the wide-radius retry branch.
@@ -235,7 +436,7 @@ def main() -> int:
     if host_syncs != 1:
         raise AssertionError(f"the tracking step synchronised with the host {host_syncs} times (expected 1)")
 
-    hamming.LAUNCHES = 0
+    reset_launch_counts()
     pose, obs, uv, vel = state0
     key = key0
     per_frame = []
@@ -280,6 +481,8 @@ def main() -> int:
     launches = hamming.LAUNCHES
     if launches < 2 * F:
         raise AssertionError(f"hamming kernel launched {launches} times over {F} frames (< 2 per frame)")
+    main_by_shape = collections.Counter(hamming.LAUNCHES_BY_SHAPE)
+    per_tracked_frame = {s: n / F for s, n in main_by_shape.items()}
     ms_wall = [rec["ms_wall"] for rec in per_frame]
     emit({"phase": "main", "entry": "pipeline.tracking.track_frame_fused", "frames": F,
           "view_valid": int(view.valid.sum()), "map_points": int(m.pt_valid.sum()),
@@ -293,19 +496,35 @@ def main() -> int:
     system_rec = run_system_phase(dev)
     system_rec.update(device=kind, nvidia_smi=smi)
     emit(system_rec)
-    hamming.hamming_matrix_cuda = kernel
+
+    # --- 6. the profiler's cross-check, after every timed phase ---
+    emit(profile_phase(dev) | {"device": kind, "nvidia_smi": smi})
+    # Phase 5's counts stay in the wrapper (its insertion re-run included).
+    path_shapes = set(main_by_shape) | set(hamming.LAUNCHES_BY_SHAPE)
     unchecked = path_shapes - set(KERNEL_SHAPES)
-    emit({"phase": "kernel_shapes", "path_shapes": sorted(path_shapes), "unchecked": sorted(unchecked)})
+    by_shape = {
+        f"{nq}x{nt}": {"per_tracked_frame": per_tracked_frame.get((nq, nt), 0.0),
+                       "per_insertion": system_rec["hamming_launches_per_insertion_by_shape"].get(f"{nq}x{nt}", 0.0),
+                       "in_system_run": system_rec["hamming_launches_by_shape"].get(f"{nq}x{nt}", 0)}
+        for nq, nt in sorted(path_shapes)
+    }
+    emit({"phase": "kernel_shapes", "path_shapes": sorted(path_shapes), "unchecked": sorted(unchecked),
+          "launches_by_shape": by_shape})
     if unchecked:
         raise AssertionError(f"the path launched the hamming kernel at shapes phase 3 did not check: {sorted(unchecked)}")
 
+    times = kernel_rec["times"]
     t48 = times["4096x800"]
     emit({"kernels": [{
         "name": "hamming_matrix", "route": "cuda",
         "source": "gf_orb_slam_tpu_torch/csrc/hamming.cu",
         "replaces": "gf_orb_slam_tpu/ops/pallas_kernels.py:41",
-        "launches": launches_main + system_rec["hamming_launches"], "max_abs_err": max_err,
-        "ms": t48["kernel_ms"], "plain_ms": t48["plain_ms"],
+        "launches": launches_main + system_rec["hamming_launches"], "max_abs_err": kernel_rec["max_abs_err"],
+        "ms": t48["ms"], "plain_ms": t48["plain_ms"], "bound_ms": t48["bound_ms"], "bound_by": t48["bound_by"],
+        "library_ms": t48["library_ms"], "fraction_of_bound": t48["fraction_of_bound"],
+        "shapes": {s: {k: v[k] for k in ("ms", "bound_ms", "fraction_of_bound", "library_ms", "plain_ms",
+                                         "old_ms", "host_us")} | by_shape.get(s, {})
+                   for s, v in times.items()},
     }]})
     # The run used one card, whatever the machine holds.
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": 1}})
@@ -343,9 +562,10 @@ def run_system_phase(dev) -> dict:
     inserts: list[dict] = []
 
     def counting_insert(*a, **kw):
-        before = hamming.LAUNCHES
+        before, shapes_before = hamming.LAUNCHES, collections.Counter(hamming.LAUNCHES_BY_SHAPE)
         out = insert(*a, **kw)
-        inserts.append({"launches": hamming.LAUNCHES - before, "args": a, "kw": kw})
+        inserts.append({"launches": hamming.LAUNCHES - before, "by_shape": hamming.LAUNCHES_BY_SHAPE - shapes_before,
+                        "args": a, "kw": kw})
         return out
 
     per_frame_ms, syncs, states = [], [], []
@@ -360,8 +580,9 @@ def run_system_phase(dev) -> dict:
             states.append((log.state, "keyframe_insert" in log.timing_ms, log.pose_cw is not None))
 
         local_mapping.insert_keyframe_fused = counting_insert
-        hamming.LAUNCHES = 0
+        reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
+        allocated_mib = torch.cuda.memory_allocated() / 2**20
         torch.cuda.set_sync_debug_mode("warn")
         try:
             t0 = time.perf_counter()
@@ -372,6 +593,8 @@ def run_system_phase(dev) -> dict:
             torch.cuda.set_sync_debug_mode("default")
             local_mapping.insert_keyframe_fused = insert
     launches = hamming.LAUNCHES
+    run_by_shape = collections.Counter(hamming.LAUNCHES_BY_SHAPE)
+    insert_by_shape = sum((r["by_shape"] for r in inserts), collections.Counter())
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
 
     # One insertion again, on the map it was given, with every sync counted.
@@ -408,10 +631,13 @@ def run_system_phase(dev) -> dict:
         "insert_frame_ms_median": statistics.median(insert_ms) if insert_ms else None,
         "hamming_launches": launches,
         "hamming_launches_per_insertion": [r["launches"] for r in inserts],
+        "hamming_launches_by_shape": {f"{nq}x{nt}": n for (nq, nt), n in sorted(run_by_shape.items())},
+        "hamming_launches_per_insertion_by_shape": {
+            f"{nq}x{nt}": n / len(inserts) for (nq, nt), n in sorted(insert_by_shape.items())},
         "host_syncs_per_tracked_frame": sorted(set(tracked_syncs)),
         "host_syncs_per_insert_frame": sorted({syncs[i] for i in insert_frames}),
         "host_syncs_in_insert_keyframe_fused": insert_syncs,
-        "peak_device_memory_mib": peak_mb,
+        "peak_device_memory_mib": peak_mb, "allocated_mib_at_start": allocated_mib,
         "per_frame_ms": [round(v, 1) for v in per_frame_ms],
     }
 

@@ -37,6 +37,19 @@ from gf_orb_slam_tpu_torch.pipeline import track_view as tv
 from gf_orb_slam_tpu_torch.pipeline import tracking
 from gf_orb_slam_tpu_torch.solvers import initializer, local_ba
 
+NO_CUDA = 'no CUDA device is available: pass device="cpu" (--device cpu on the command line) to run on the CPU'
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: `device`, or the first CUDA card
+    when it is None. A CUDA device without a card raises; nothing falls back
+    to the CPU unless the caller asks for it."""
+    dev = torch.device(device) if device is not None else torch.device("cuda", 0)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(NO_CUDA)
+    return dev
+
+
 SLICE3 = "place recognition is not ported yet (ROADMAP slice 3: retrieval, relocalization, loop closing)"
 
 
@@ -107,7 +120,7 @@ class SlamSystem:
             raise NotImplementedError(f"enable_relocalization=True: {SLICE3}")
         self.cam = cam
         self.cfg = cfg
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self.device = resolve_device(device)
         self.orb_cfg = orb.OrbConfig(
             n_features=cfg.n_features, n_levels=cfg.n_levels, scale=cfg.scale,
             fast_threshold=cfg.fast_threshold,

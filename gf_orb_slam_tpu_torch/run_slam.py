@@ -2,9 +2,10 @@
 sequence and write TUM trajectories, the time log and a result JSON, as
 the reference's run_slam.py does.
 
-    python -m gf_orb_slam_tpu_torch.run_slam --synthetic 40 --gf-budget 100 --device cpu
     python -m gf_orb_slam_tpu_torch.run_slam --synthetic 240 --gf-budget 100 --out results/port
+    python -m gf_orb_slam_tpu_torch.run_slam --synthetic 40 --gf-budget 100 --device cpu
 
+The run is on the first CUDA card unless `--device cpu` asks for the CPU.
 Place recognition (loop closing, relocalization) is not ported; the run
 has it off. Frames are rendered on the run's device and rounded to uint8,
 as the camera would deliver them.
@@ -24,7 +25,7 @@ import torch
 from gf_orb_slam_tpu_torch.geometry import se3
 from gf_orb_slam_tpu_torch.geometry.camera import CameraModel
 from gf_orb_slam_tpu_torch.io_utils import evaluation, synthetic
-from gf_orb_slam_tpu_torch.pipeline.system import FrameLog, SlamConfig, SlamSystem
+from gf_orb_slam_tpu_torch.pipeline.system import FrameLog, SlamConfig, SlamSystem, resolve_device
 
 BENCH_CAMERA = CameraModel(fx=458.0, fy=458.0, cx=376.0, cy=240.0, width=752, height=480, fps=20.0)
 
@@ -41,8 +42,9 @@ def bench_config(**overrides) -> SlamConfig:
 
 def render_sequence(cam: CameraModel, n_frames: int, scene_seed: int = 0, device=None):
     """(timestamps (F,), ground-truth T_cw poses (F, 7), frames (F, H, W)
-    float32 rounded to uint8 values, on `device`)."""
-    scene = synthetic.make_scene(seed=scene_seed, device=device)
+    float32 rounded to uint8 values, on `device`: the first CUDA card unless
+    given)."""
+    scene = synthetic.make_scene(seed=scene_seed, device=resolve_device(device))
     ts, poses_gt = synthetic.trajectory(n_frames, fps=cam.fps)
     frames = torch.stack([
         torch.clamp(torch.round(synthetic.render(scene, cam, torch.from_numpy(poses_gt[i]))), 0, 255)
@@ -67,9 +69,10 @@ def run_sequence(
     seed: int = 0,
     on_frame: Callable[[int, FrameLog], None] | None = None,
 ) -> tuple[SlamSystem, dict]:
-    """Process every frame; returns the system and the result summary
-    (frames, tracked, keyframes, map points, timing, ATE against the
-    ground truth when more than 10 frames were tracked)."""
+    """Process every frame on `device` (the first CUDA card unless given);
+    returns the system and the result summary (frames, tracked, keyframes,
+    map points, timing, ATE against the ground truth when more than 10
+    frames were tracked)."""
     system = SlamSystem(cam, cfg, device=device, seed=seed)
     for i in range(frames.shape[0]):
         log = system.process(frames[i], float(ts[i]))
@@ -115,7 +118,7 @@ def main(argv=None) -> int:
     ap.add_argument("--gf-budget", type=int, default=0, help="good-feature budget (0 = GF off)")
     ap.add_argument("--n-features", type=int, default=0, help="override the ORB feature count")
     ap.add_argument("--out", default="results/port", help="output prefix")
-    ap.add_argument("--device", default="cuda" if torch.cuda.is_available() else "cpu")
+    ap.add_argument("--device", default="cuda", help='"cuda" (default: fails without a card) or "cpu"')
     ap.add_argument("--seed", type=int, default=0, help="initializer sampling seed")
     ap.add_argument("--scene-seed", type=int, default=0, help="synthetic scene texture seed")
     args = ap.parse_args(argv)
@@ -127,7 +130,7 @@ def main(argv=None) -> int:
     if args.gf_budget > 0:
         cfg.use_gf = True
         cfg.gf_budget = args.gf_budget
-    device = torch.device(args.device)
+    device = resolve_device(args.device)
     ts, poses_gt, frames = render_sequence(cam, args.synthetic, args.scene_seed, device)
 
     def progress(i, log):

@@ -1,5 +1,7 @@
-"""Tests of the port that need a CUDA GPU: the hand-written Hamming kernel
-against its plain version, the tracking step on the card against the
+"""Tests of the port that need a CUDA GPU: the hand-written Hamming kernels
+against their plain version (path shapes, tile boundaries, extreme
+descriptors, `out=`, replay in a CUDA graph), the entry points' default
+device, the tracking step on the card against the
 reference's recorded outputs, and the host synchronisations of the tracking
 stages and of the keyframe insertion. They skip where there is no GPU.
 
@@ -27,6 +29,7 @@ from gf_orb_slam_tpu_torch.pipeline import local_mapping
 from gf_orb_slam_tpu_torch.pipeline import track_view as tv
 from gf_orb_slam_tpu_torch.pipeline import tracking
 
+PATH_SHAPES = [(4096, 800), (800, 800), (1600, 800), (1600, 1600), (2048, 1600)]
 FIXTURE = os.path.join(os.path.dirname(__file__), "..", "gf_orb_slam_tpu_torch", "data", "track_fixture.npz")
 
 
@@ -44,8 +47,7 @@ def words(rng, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nq,nt", [(1, 1), (31, 33), (127, 129), (4096, 800), (800, 800), (1600, 800),
-                                   (1600, 1600), (2048, 1600), (0, 8), (8, 0)])
+@pytest.mark.parametrize("nq,nt", [(1, 1), (31, 33), (127, 129), (1000, 777), (0, 8), (8, 0)] + PATH_SHAPES)
 def test_kernel_bit_identical_to_plain(cuda, nq, nt):
     rng = np.random.default_rng(nq * 10007 + nt)
     q, t = snapshot.to_tensor(words(rng, nq), cuda), snapshot.to_tensor(words(rng, nt), cuda)
@@ -56,12 +58,93 @@ def test_kernel_bit_identical_to_plain(cuda, nq, nt):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("nq,nt", PATH_SHAPES + [(1000, 777), (8, 0)])
+def test_simt_kernel_bit_identical_to_plain(cuda, nq, nt):
+    rng = np.random.default_rng(nq + nt)
+    q, t = snapshot.to_tensor(words(rng, nq), cuda), snapshot.to_tensor(words(rng, nt), cuda)
+    got = hamming.hamming_matrix_simt_cuda(q, t)
+    torch.cuda.synchronize()
+    assert torch.equal(got, matching.hamming_matrix_torch(q, t))
+
+
+@pytest.mark.cuda
+def test_kernel_bit_identical_at_tile_boundaries(cuda):
+    bm, bn = hamming.BM, hamming.BN
+    rng = np.random.default_rng(bm * 1000 + bn)
+    for nq in (bm - 1, bm, bm + 1, 3 * bm + 1):
+        for nt in (bn - 1, bn, bn + 1, 3 * bn - 1):
+            q, t = snapshot.to_tensor(words(rng, nq), cuda), snapshot.to_tensor(words(rng, nt), cuda)
+            got = hamming.hamming_matrix_cuda(q, t)
+            torch.cuda.synchronize()
+            assert torch.equal(got, matching.hamming_matrix_torch(q, t)), (nq, nt)
+
+
+@pytest.mark.cuda
+def test_kernel_on_all_zero_and_all_ones_descriptors(cuda):
+    q = torch.zeros((130, 8), dtype=torch.int32, device=cuda)
+    q[1::2] = -1
+    t = torch.zeros((70, 8), dtype=torch.int32, device=cuda)
+    t[::3] = -1
+    got = hamming.hamming_matrix_cuda(q, t)
+    assert torch.equal(got, matching.hamming_matrix_torch(q, t))
+    assert set(got.unique().tolist()) == {0, 256}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])  # 1: a 4-byte offset, so the kernel stores word by word
+def test_kernel_writes_into_out(cuda, offset):
+    rng = np.random.default_rng(3)
+    q, t = snapshot.to_tensor(words(rng, 300), cuda), snapshot.to_tensor(words(rng, 600), cuda)
+    flat = torch.full((offset + 300 * 600 + 1,), -7, dtype=torch.int32, device=cuda)
+    out = flat[offset:offset + 300 * 600].view(300, 600)
+    before = hamming.LAUNCHES
+    assert hamming.hamming_matrix_cuda(q, t, out=out) is out
+    assert hamming.LAUNCHES == before + 1
+    assert torch.equal(out, matching.hamming_matrix_torch(q, t))
+    assert int(flat[-1]) == -7 and (offset == 0 or int(flat[0]) == -7)  # nothing written outside
+    with pytest.raises(ValueError, match="out is on cpu"):
+        hamming.hamming_matrix_cuda(q, t, out=torch.empty((300, 600), dtype=torch.int32))
+
+
+@pytest.mark.cuda
+def test_kernel_replays_in_a_cuda_graph_over_an_output_ring(cuda):
+    rng = np.random.default_rng(4)
+    q, t = snapshot.to_tensor(words(rng, 1600), cuda), snapshot.to_tensor(words(rng, 800), cuda)
+    ring = [torch.empty((1600, 800), dtype=torch.int32, device=cuda) for _ in range(3)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        hamming.hamming_matrix_cuda(q, t, out=ring[0])
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(6):
+            hamming.hamming_matrix_cuda(q, t, out=ring[i % 3])
+    for o in ring:
+        o.fill_(-1)
+    graph.replay()
+    torch.cuda.synchronize()
+    want = matching.hamming_matrix_torch(q, t)
+    assert all(torch.equal(o, want) for o in ring)
+
+
+@pytest.mark.cuda
+def test_entry_points_default_to_the_card(cuda):
+    from gf_orb_slam_tpu_torch import run_slam
+    from gf_orb_slam_tpu_torch.pipeline import system
+
+    assert system.SlamSystem(run_slam.BENCH_CAMERA, run_slam.bench_config()).device == cuda
+    _, _, frames = run_slam.render_sequence(run_slam.BENCH_CAMERA, 1)
+    assert frames.device == cuda
+
+
+@pytest.mark.cuda
 def test_matching_routes_cuda_tensors_to_the_kernel(cuda):
     rng = np.random.default_rng(1)
     q, t = snapshot.to_tensor(words(rng, 50), cuda), snapshot.to_tensor(words(rng, 60), cuda)
-    before = hamming.LAUNCHES
+    before, by_shape = hamming.LAUNCHES, hamming.LAUNCHES_BY_SHAPE[(50, 60)]
     got = matching.hamming_matrix(q, t)
-    assert hamming.LAUNCHES == before + 1
+    assert hamming.LAUNCHES == before + 1 and hamming.LAUNCHES_BY_SHAPE[(50, 60)] == by_shape + 1
     assert torch.equal(got, matching.hamming_matrix_torch(q, t))
 
 

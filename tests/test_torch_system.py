@@ -147,12 +147,41 @@ def test_system_refuses_place_recognition(field):
 
 
 def test_system_refuses_preset_vocabulary_and_saved_maps():
-    s = system.SlamSystem(CAM, run_slam.bench_config())
+    s = system.SlamSystem(CAM, run_slam.bench_config(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP slice 3"):
         s.set_vocabulary(object())
     with pytest.raises(NotImplementedError, match="ROADMAP slice 3"):
         s.load_map_state(object())
     assert not hasattr(system.SlamConfig(), "pipelined")
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+ENTRY_POINTS = {
+    "SlamSystem": lambda tmp: system.SlamSystem(CAM, run_slam.bench_config()),
+    "render_sequence": lambda tmp: run_slam.render_sequence(CAM, 1),
+    "run_sequence": lambda tmp: run_slam.run_sequence(CAM, run_slam.bench_config(), np.zeros(1), np.zeros((1, 7)),
+                                                      torch.zeros((1, CAM.height, CAM.width))),
+    "main": lambda tmp: run_slam.main(["--synthetic", "1", "--out", str(tmp / "cli")]),
+}
+
+
+@pytest.mark.parametrize("entry", ENTRY_POINTS)
+def test_entry_points_run_on_the_card_unless_given_the_cpu(no_card, tmp_path, entry):
+    with pytest.raises(RuntimeError, match='pass device="cpu"'):
+        ENTRY_POINTS[entry](tmp_path)
+    assert not (tmp_path / "cli_result.json").exists()
+
+
+def test_entry_points_run_on_the_cpu_when_asked(no_card):
+    assert system.SlamSystem(CAM, run_slam.bench_config(), device="cpu").device == torch.device("cpu")
+    ts, poses_gt, frames = run_slam.render_sequence(CAM, 2, device="cpu")
+    assert frames.device == torch.device("cpu") and frames.shape == (2, CAM.height, CAM.width)
+    s, result = run_slam.run_sequence(CAM, run_slam.bench_config(), ts, poses_gt, frames, device="cpu")
+    assert result["frames"] == 2 and s.map.kf_pose.device == torch.device("cpu")
 
 
 # ---------------------------------------------------------------------------
