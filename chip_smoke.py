@@ -15,46 +15,69 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              tracking path (4096×800, 800×800, and 1600×800 on the first
              frame after initialization, whose last observations are the
              1600-wide second keyframe's), the initialization and
-             triangulation matches (1600×1600) and the fusion matches
-             (2048×1600), ragged and empty shapes, the kernel's 64×32 tile
-             at its boundaries (tile −1, exact and +1 in both dimensions,
-             and three tiles +1 rows by three tiles −1 columns), all-zero /
-             all-ones descriptors and an unaligned `out=`; the CUDA-core baseline
-             kernel at the path, ragged and empty shapes. Then, at the five
-             path shapes, the device time of each kernel (GRAPH_REPS
-             launches captured in one CUDA graph, each writing the next
-             output of a ring larger than the 50 MB L2; turns old, new, new,
-             old), the library yardstick
+             triangulation matches (1600×1600), the fusion matches
+             (2048×1600), relocalization (800×1600: the lost frame against a
+             candidate keyframe) and the loop's SearchAndFuse (4800×1600:
+             three keyframes' points into one), ragged and empty shapes, the
+             kernel's 64×32 tile at its boundaries (tile −1, exact and +1 in
+             both dimensions, and three tiles +1 rows by three tiles −1
+             columns), all-zero / all-ones descriptors and an unaligned
+             `out=`; the CUDA-core baseline kernel at the path, ragged and
+             empty shapes. Then, at the seven path shapes, the device time
+             of each kernel (GRAPH_REPS launches captured in one CUDA graph,
+             each writing the next output of a ring larger than the 50 MB
+             L2; turns old, new, new, old), the library yardstick
              (`torch._int_mm` on ±1 int8 operands, unpacked before timing),
              the plain version (no yardstick), the bound, and the wrapper's
              host µs per call; and the one-block floor of both kernels. The
-             wrapper counts its launches by shape; the run fails if phase 4
-             or 5 launched it at a shape not checked here;
+             wrapper counts its launches by shape; the run fails if a path
+             phase (4-7) launched it at a shape not checked here;
 4. main    — the per-frame tracking step (`track_frame_fused`, GF subset mode,
              budget 100, batch 10) chained over the fixture's frames on the
              reference's map, each frame checked against the reference's
              recorded outputs; per-frame times after one warm-up frame; the
              step's host synchronisations counted (exactly one expected);
-5. system  — the whole SLAM loop from the first frame: the bench's 240
-             frames rendered on the card and rounded to uint8, run through
-             `SlamSystem.process` (bench configuration, seed 0: two-view
-             initialization, tracking, keyframe insertion with triangulation,
-             fusion, windowed BA and culling), held against the reference's
-             recorded run (first WORKING frame, tracked and LOST frames,
-             keyframes inserted, ATE); per-frame times, Hamming launches per
-             insertion, host syncs per frame, and one insertion re-run under
-             PyTorch's sync debug mode (no sync allowed);
-6. profile — the profiler's device duration of both kernels at 4096×800, a
+5. system  — the whole SLAM loop from the first frame in bench.py's shipped
+             configuration: the bench's 240 frames rendered on the card and
+             rounded to uint8, run through `SlamSystem.process` (seed 0;
+             place recognition on with the packaged 1M-word vocabulary read
+             by path: two-view initialization, tracking, keyframe insertion
+             with triangulation, fusion, windowed BA and culling, BoW
+             registration and loop-candidate ranking), held against the
+             reference's recorded run (first WORKING frame, tracked and LOST
+             frames, keyframes inserted, loops closed, ATE); per-frame
+             times, Hamming launches per insertion, host syncs per frame, and
+             one insertion re-run under PyTorch's sync debug mode (no sync
+             allowed);
+6. relocalization — the same sequence and configuration with frames 45-49
+             black: LOST on them, then relocalized (BoW candidates, 4 ×
+             BoW-gated 800×1600 matches and EPnP RANSAC, local-map tracking)
+             no later than the reference's frame + 2, with exactly one host
+             read per lost frame and ATE ≤ 2× the reference's;
+7. loop    — the room circuit (420 frames, radtan-distorted EuRoC camera,
+             the reference CLI's room configuration at GF budget 100, scene
+             seed 0): tracked ≥ 98% of the reference's frames, a loop closed
+             whenever the reference closed one, ATE ≤ 2× the reference's,
+             every pose finite; per-frame times, the ms and host syncs of
+             each loop verification and correction, Hamming launches by
+             shape, host syncs per insertion and peak device memory;
+8. breakdown — the last call of each place-recognition function of phases
+             5-7 re-run alone between synchronisations: the insertion and
+             its BoW registration, the lost frame's relocalization, a loop
+             verification, and a correction with its pose graph and its
+             SearchAndFuse timed apart;
+9. profile — the profiler's device duration of both kernels at 4096×800, a
              cross-check of phase 3's graph times, and the host µs of one
              small eager op before and after the profiler ran. It comes
              last, so that the profiler cannot slow the host's launches in
              the timed phases.
 
-Then the kernel's launches by shape, the kernel table line and, last,
-{"ok": true, "device": {...}}. The fixtures
-(gf_orb_slam_tpu_torch/data/track_fixture.npz and system_fixture.npz) are
-written from the JAX reference by tools/make_torch_fixture.py and
-tools/make_torch_system_fixture.py.
+Each path phase (4-7) sets the kernel's launch counts to 0 just before it
+drives the path and reads them just after. Then the kernel's launches by
+shape, the kernel table line and, last, {"ok": true, "device": {...}}. The
+fixtures (gf_orb_slam_tpu_torch/data/track_fixture.npz and
+place_fixture.npz) are written from the JAX reference by
+tools/make_torch_fixture.py and tools/make_torch_place_fixture.py.
 """
 
 from __future__ import annotations
@@ -72,8 +95,10 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(REPO, "gf_orb_slam_tpu_torch", "data", "track_fixture.npz")
-SYSTEM_FIXTURE = os.path.join(REPO, "gf_orb_slam_tpu_torch", "data", "system_fixture.npz")
-TIMED_SHAPES = [(4096, 800), (800, 800), (1600, 800), (1600, 1600), (2048, 1600)]
+PLACE_FIXTURE = os.path.join(REPO, "gf_orb_slam_tpu_torch", "data", "place_fixture.npz")
+# Tracking (4096×800, 800×800, 1600×800), bootstrap and triangulation
+# (1600×1600), fusion (2048×1600), relocalization (800×1600), SearchAndFuse (4800×1600).
+TIMED_SHAPES = [(4096, 800), (800, 800), (1600, 800), (1600, 1600), (2048, 1600), (800, 1600), (4800, 1600)]
 KERNEL_SHAPES = TIMED_SHAPES + [(1000, 777), (1, 1), (0, 8), (8, 0)]
 # Kernel timing.
 GRAPH_REPS = 50             # kernel launches captured in one CUDA graph
@@ -304,7 +329,7 @@ def kernel_phase(dev) -> dict:
 
 
 def profile_phase(dev) -> dict:
-    """Phase 6: the profiler's device µs of both Hamming kernels at the
+    """Phase 9: the profiler's device µs of both Hamming kernels at the
     first timed shape, and the host µs of a small eager op before and after
     the profiler ran."""
     import numpy as np
@@ -411,7 +436,7 @@ def main() -> int:
     cam = CameraModel(**meta["camera"])
     orb_cfg = OrbConfig(**meta["orb_config"])
     gf = meta["gf"]
-    m = snapshot.load_map(FIXTURE, dev)
+    m, _, _ = snapshot.load_map(FIXTURE, dev)
     view = tv.compute_track_view(m, int(z["center_kf"]), view_size=meta["view_size"])
     ref_view = snapshot.track_view_from_numpy(z, dev, prefix="track_view_")
     if not (torch.equal(view.ids, ref_view.ids) and torch.equal(view.valid, ref_view.valid)):
@@ -491,21 +516,45 @@ def main() -> int:
           "median_ms_cuda_events": statistics.median(rec["ms_cuda_events"] for rec in per_frame),
           "fps": F / (sum(ms_wall) / 1e3), "device": kind, "nvidia_smi": smi})
 
-    # --- 5. the whole SLAM loop from the first frame ---
-    launches_main = launches
-    system_rec = run_system_phase(dev)
-    system_rec.update(device=kind, nvidia_smi=smi)
-    emit(system_rec)
+    # --- 5-7. the whole SLAM loop from the first frame, with place recognition ---
+    from gf_orb_slam_tpu_torch.retrieval import vocabulary as voc_mod
 
-    # --- 6. the profiler's cross-check, after every timed phase ---
+    t0 = time.perf_counter()
+    voc = voc_mod.load_default_vocabulary(dev)  # the packaged 1M-word tree, read by path
+    voc_s = time.perf_counter() - t0
+    if voc is None or voc.n_words != 1_000_000:
+        raise AssertionError(f"the packaged 1M-word vocabulary did not load from {voc_mod.default_vocabulary_path()}")
+    path_recs, runs = {}, {}
+    for name, phase in (("system", run_system_phase), ("relocalization", run_relocalization_phase),
+                        ("loop", run_loop_phase)):
+        rec, runs[name] = phase(dev, voc)
+        if name == "system":
+            rec["vocabulary"] = {"path": os.path.relpath(voc_mod.default_vocabulary_path(), REPO),
+                                 "n_words": voc.n_words, "load_seconds": voc_s,
+                                 "centers_mib": voc.centers.numel() * 4 / 2**20}
+        rec.update(device=kind, nvidia_smi=smi)
+        emit(rec)
+        path_recs[name] = rec
+
+    # --- 8. where a place-recognition frame's time goes ---
+    emit(breakdown_phase(runs) | {"device": kind, "nvidia_smi": smi})
+    del runs
+
+    # --- 9. the profiler's cross-check, after every timed phase ---
     emit(profile_phase(dev) | {"device": kind, "nvidia_smi": smi})
-    # Phase 5's counts stay in the wrapper (its insertion re-run included).
-    path_shapes = set(main_by_shape) | set(hamming.LAUNCHES_BY_SHAPE)
+    # Every shape a path phase launched the kernel at (phase 5's insertion
+    # re-run launches the shapes of its run).
+    path_shapes = set(main_by_shape)
+    for rec in path_recs.values():
+        path_shapes |= {tuple(int(x) for x in k.split("x")) for k in rec["hamming_launches_by_shape"]}
     unchecked = path_shapes - set(KERNEL_SHAPES)
     by_shape = {
         f"{nq}x{nt}": {"per_tracked_frame": per_tracked_frame.get((nq, nt), 0.0),
-                       "per_insertion": system_rec["hamming_launches_per_insertion_by_shape"].get(f"{nq}x{nt}", 0.0),
-                       "in_system_run": system_rec["hamming_launches_by_shape"].get(f"{nq}x{nt}", 0)}
+                       "per_insertion": path_recs["system"]["hamming_launches_per_insertion_by_shape"].get(
+                           f"{nq}x{nt}", 0.0),
+                       "launches": {"main": main_by_shape.get((nq, nt), 0)} | {
+                           name: rec["hamming_launches_by_shape"].get(f"{nq}x{nt}", 0)
+                           for name, rec in path_recs.items()}}
         for nq, nt in sorted(path_shapes)
     }
     emit({"phase": "kernel_shapes", "path_shapes": sorted(path_shapes), "unchecked": sorted(unchecked),
@@ -519,7 +568,8 @@ def main() -> int:
         "name": "hamming_matrix", "route": "cuda",
         "source": "gf_orb_slam_tpu_torch/csrc/hamming.cu",
         "replaces": "gf_orb_slam_tpu/ops/pallas_kernels.py:41",
-        "launches": launches_main + system_rec["hamming_launches"], "max_abs_err": kernel_rec["max_abs_err"],
+        "launches": launches + sum(rec["hamming_launches"] for rec in path_recs.values()),
+        "max_abs_err": kernel_rec["max_abs_err"],
         "ms": t48["ms"], "plain_ms": t48["plain_ms"], "bound_ms": t48["bound_ms"], "bound_by": t48["bound_by"],
         "library_ms": t48["library_ms"], "fraction_of_bound": t48["fraction_of_bound"],
         "shapes": {s: {k: v[k] for k in ("ms", "bound_ms", "fraction_of_bound", "library_ms", "plain_ms",
@@ -531,136 +581,352 @@ def main() -> int:
     return 0
 
 
-def run_system_phase(dev) -> dict:
-    """Phase 5: SlamSystem.process over the bench sequence on the card, held
-    against the reference's recorded run. Raises on any gate."""
+def load_place_fixture(run: str):
+    """(meta, arrays) of one reference run recorded in the place fixture."""
+    import numpy as np
+
+    with np.load(PLACE_FIXTURE) as zf:
+        z = {k[len(run) + 1:]: zf[k] for k in zf.files if k.startswith(run + "_")}
+    return json.loads(str(z.pop("meta"))), z
+
+
+# Functions of the path that drive_system records, by module attribute:
+# (module, attribute, synchronise after each call to time it).
+RECORDED = {
+    "insert": ("gf_orb_slam_tpu_torch.pipeline.local_mapping", "insert_keyframe_fused", False),
+    "register": ("gf_orb_slam_tpu_torch.retrieval.keyframe_db", "register_and_detect", False),
+    "reloc": ("gf_orb_slam_tpu_torch.pipeline.tracking", "relocalize_fused", False),
+    "verify": ("gf_orb_slam_tpu_torch.loop.loop_closing", "verify_candidate", True),
+    "correct": ("gf_orb_slam_tpu_torch.loop.loop_closing", "correct_loop", True),
+}
+
+
+def drive_system(dev, cam, cfg, ts, poses_gt, frames, voc, seed: int) -> dict:
+    """run_slam.run_sequence on the card with every launch, host sync,
+    insertion, BoW registration, relocalization and loop verification /
+    correction recorded; the arguments of each one's last call are kept for
+    the breakdown. The Hamming launch counts are set to 0 just before the
+    run and read just after."""
+    import importlib
     import warnings
 
-    import numpy as np
     import torch
 
     from gf_orb_slam_tpu_torch import run_slam
     from gf_orb_slam_tpu_torch.kernels import hamming
-    from gf_orb_slam_tpu_torch.pipeline import local_mapping
 
-    with np.load(SYSTEM_FIXTURE) as zf:
-        z = {k: zf[k] for k in zf.files}
-    meta = json.loads(str(z["meta"]))
-    ref = meta["summary"]
-    cam = run_slam.BENCH_CAMERA._replace(**{k: meta["camera"][k] for k in ("fx", "fy", "cx", "cy", "width", "height", "fps")})
-    cfg = run_slam.bench_config()
-    F = meta["frames"]
-    t0 = time.perf_counter()
-    ts, poses_gt, frames = run_slam.render_sequence(cam, meta["trajectory_frames"], meta["scene_seed"], dev)
-    frames = frames[:F]
-    torch.cuda.synchronize()
-    render_s = time.perf_counter() - t0
-
-    # Count the Hamming launches of every insertion, and keep the last
-    # insertion's arguments for the sync check below.
-    insert = local_mapping.insert_keyframe_fused
-    inserts: list[dict] = []
-
-    def counting_insert(*a, **kw):
-        before, shapes_before = hamming.LAUNCHES, collections.Counter(hamming.LAUNCHES_BY_SHAPE)
-        out = insert(*a, **kw)
-        inserts.append({"launches": hamming.LAUNCHES - before, "by_shape": hamming.LAUNCHES_BY_SHAPE - shapes_before,
-                        "args": a, "kw": kw})
-        return out
-
+    modules = {name: importlib.import_module(mod) for name, (mod, _, _) in RECORDED.items()}
+    originals = {name: getattr(modules[name], attr) for name, (_, attr, _) in RECORDED.items()}
+    calls: dict[str, list] = {k: [] for k in RECORDED}
+    last_args: dict[str, tuple] = {}
     per_frame_ms, syncs, states = [], [], []
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
 
+        def n_syncs():
+            return sum("synchronizing CUDA operation" in str(w.message) for w in caught)
+
+        def recorded(name):
+            # Each call: Hamming launches (by shape), host syncs inside it,
+            # and its host ms (up to a synchronisation after it where
+            # RECORDED says so; the phase's per-frame times include that
+            # wait too).
+            def call(*a, **kw):
+                before, shapes_before, s0 = hamming.LAUNCHES, collections.Counter(hamming.LAUNCHES_BY_SHAPE), n_syncs()
+                t0 = time.perf_counter()
+                out = originals[name](*a, **kw)
+                if RECORDED[name][2]:
+                    torch.cuda.synchronize()
+                calls[name].append({"frame": len(per_frame_ms), "launches": hamming.LAUNCHES - before,
+                                    "by_shape": hamming.LAUNCHES_BY_SHAPE - shapes_before,
+                                    "syncs": n_syncs() - s0, "ms": (time.perf_counter() - t0) * 1e3})
+                last_args[name] = (a, kw)
+                return out
+            return call
+
         def on_frame(i, log):
             per_frame_ms.append(log.timing_ms["total"])
-            n_sync = sum("synchronizing CUDA operation" in str(w.message) for w in caught)
+            syncs.append(n_syncs())
             caught.clear()
-            syncs.append(n_sync)
             states.append((log.state, "keyframe_insert" in log.timing_ms, log.pose_cw is not None))
 
-        local_mapping.insert_keyframe_fused = counting_insert
+        for name, (_, attr, _) in RECORDED.items():
+            setattr(modules[name], attr, recorded(name))
         reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
         allocated_mib = torch.cuda.memory_allocated() / 2**20
         torch.cuda.set_sync_debug_mode("warn")
         try:
             t0 = time.perf_counter()
-            system, result = run_slam.run_sequence(
-                cam, cfg, ts[:F], poses_gt[:F], frames, dev, seed=meta["seed"], on_frame=on_frame)
+            system, result = run_slam.run_sequence(cam, cfg, ts, poses_gt, frames, dev, seed=seed,
+                                                   on_frame=on_frame, vocabulary=voc)
             run_s = time.perf_counter() - t0
         finally:
             torch.cuda.set_sync_debug_mode("default")
-            local_mapping.insert_keyframe_fused = insert
-    launches = hamming.LAUNCHES
-    run_by_shape = collections.Counter(hamming.LAUNCHES_BY_SHAPE)
-    insert_by_shape = sum((r["by_shape"] for r in inserts), collections.Counter())
-    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+            for name, (_, attr, _) in RECORDED.items():
+                setattr(modules[name], attr, originals[name])
+    return {"system": system, "result": result, "run_s": run_s, "per_frame_ms": per_frame_ms, "syncs": syncs,
+            "states": states, "calls": calls, "last_args": last_args, "originals": originals,
+            "launches": hamming.LAUNCHES, "by_shape": collections.Counter(hamming.LAUNCHES_BY_SHAPE),
+            "peak_mib": torch.cuda.max_memory_allocated() / 2**20, "allocated_mib": allocated_mib}
 
-    # One insertion again, on the map it was given, with every sync counted.
-    last = inserts[-1]
-    insert_syncs = count_host_syncs(lambda: insert(*last["args"], **last["kw"]))
 
+def timed_ms(fn, reps: int = 3) -> float:
+    """Median wall ms of fn() between synchronisations (the card idle before)."""
+    import torch
+
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
+def breakdown_phase(runs: dict) -> dict:
+    """The place-recognition work of each path phase's last call, re-run
+    alone between synchronisations (median of 3): the insertion and the BoW
+    registration after it, a lost frame's relocalization, one loop
+    verification and one correction with its pose graph and its
+    SearchAndFuse timed apart."""
+    import importlib
+
+    import torch
+
+    rec = {"phase": "breakdown", "reps": 3}
+    for name, run in runs.items():
+        for fn_name, (a, kw) in run["last_args"].items():
+            if fn_name == "correct":
+                continue
+            rec[f"{name}.{fn_name}_ms"] = timed_ms(lambda: run["originals"][fn_name](*a, **kw))
+    a, kw = runs["loop"]["last_args"]["correct"]
+    parts = {"pose_graph": ("gf_orb_slam_tpu_torch.solvers.pose_graph", "optimize_pose_graph"),
+             "fuse": ("gf_orb_slam_tpu_torch.mapping.keyframe_ops", "fuse_into_keyframe")}
+    spent = {k: [] for k in parts}
+    originals = {}
+    for k, (mod, attr) in parts.items():
+        module = importlib.import_module(mod)
+        originals[k] = (module, attr, getattr(module, attr))
+
+        def timed(*aa, _k=k, **kk):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = originals[_k][2](*aa, **kk)
+            torch.cuda.synchronize()
+            spent[_k].append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        setattr(module, attr, timed)
+    try:
+        rec["loop.correct_ms"] = timed_ms(lambda: runs["loop"]["originals"]["correct"](*a, **kw))
+    finally:
+        for module, attr, fn in originals.values():
+            setattr(module, attr, fn)
+    for k, v in spent.items():  # per correction: the median over the re-runs of each one's calls
+        per = len(v) // 3
+        rec[f"loop.correct.{k}_ms"] = statistics.median(sum(v[i * per : (i + 1) * per]) for i in range(3))
+        rec[f"loop.correct.{k}_calls"] = per
+    return rec
+
+
+def run_record(run: dict, F: int) -> dict:
+    """The figures every system phase reports."""
+    import numpy as np
+
+    states, per_frame_ms, syncs, calls = run["states"], run["per_frame_ms"], run["syncs"], run["calls"]
     working = [i for i, (st, _, _) in enumerate(states) if st == "WORKING"]
-    first_working = working[0] if working else -1
     insert_frames = [i for i, (_, ins, _) in enumerate(states) if ins]
-    n_inserted = len(insert_frames) + (2 if first_working >= 0 else 0)
     tracked_ms = [per_frame_ms[i] for i, (st, ins, has) in enumerate(states) if has and not ins]
     insert_ms = [per_frame_ms[i] for i in insert_frames]
-    tracked_syncs = [syncs[i] for i, (st, ins, has) in enumerate(states) if has and not ins]
-    est_ts, est_poses = system.get_trajectory()
-    # The fixture lists the initialization frame first, then each insertion.
-    ref_insert_frames = [int(f) for f in z["insert_frames"][1:]]
-    rec = {
-        "phase": "system", "entry": "pipeline.system.SlamSystem.process", "frames": F,
-        "render_seconds": render_s, "run_seconds": run_s,
-        "first_working": first_working, "ref_first_working": ref["first_working"],
-        "tracked": result["tracked"], "ref_tracked": ref["tracked"],
+    inserts = calls["insert"]
+    insert_by_shape = sum((r["by_shape"] for r in inserts), collections.Counter())
+    result = run["result"]
+    return {
+        "frames": F, "run_seconds": run["run_s"],
+        "first_working": working[0] if working else -1, "tracked": result["tracked"],
         "lost": sum(st == "LOST" for st, _, _ in states),
-        "keyframes_inserted": n_inserted, "ref_keyframes_inserted": ref["keyframes_inserted"],
-        "keyframes_valid": result["keyframes_valid"], "map_points": result["map_points"],
-        "insert_frames": insert_frames,
-        # Reported, not gated: the gates hold the run statistically.
-        "insert_frames_match_reference": insert_frames == ref_insert_frames,
-        "insert_frames_not_in_reference": sorted(set(insert_frames) - set(ref_insert_frames)),
-        "reference_insert_frames_missed": sorted(set(ref_insert_frames) - set(insert_frames)),
-        "ate_rmse_m": result.get("ate_rmse_m"), "ref_ate_rmse_m": ref["ate_rmse_m"],
-        "init_frame_ms": per_frame_ms[first_working] if first_working >= 0 else None,
+        "keyframes_inserted": len(insert_frames) + (2 if working else 0), "keyframes_valid": result["keyframes_valid"],
+        "map_points": result["map_points"], "loops_closed": result["loops_closed"], "insert_frames": insert_frames,
+        "ate_rmse_m": result.get("ate_rmse_m"),
+        "poses_finite": bool(all(np.isfinite(p).all() and p.shape == (7,) for p in run["system"].get_trajectory()[1])),
+        "init_frame_ms": per_frame_ms[working[0]] if working else None,
         "tracked_ms_median": statistics.median(tracked_ms) if tracked_ms else None,
         "tracked_ms_p90": percentile(tracked_ms, 90) if tracked_ms else None,
         "insert_frame_ms_median": statistics.median(insert_ms) if insert_ms else None,
-        "hamming_launches": launches,
+        "hamming_launches": run["launches"],
+        "hamming_launches_by_shape": {f"{nq}x{nt}": n for (nq, nt), n in sorted(run["by_shape"].items())},
         "hamming_launches_per_insertion": [r["launches"] for r in inserts],
-        "hamming_launches_by_shape": {f"{nq}x{nt}": n for (nq, nt), n in sorted(run_by_shape.items())},
         "hamming_launches_per_insertion_by_shape": {
-            f"{nq}x{nt}": n / len(inserts) for (nq, nt), n in sorted(insert_by_shape.items())},
-        "host_syncs_per_tracked_frame": sorted(set(tracked_syncs)),
+            f"{nq}x{nt}": n / max(1, len(inserts)) for (nq, nt), n in sorted(insert_by_shape.items())},
+        "host_syncs_per_tracked_frame": sorted({syncs[i] for i, (st, ins, has) in enumerate(states)
+                                                if has and not ins}),
         "host_syncs_per_insert_frame": sorted({syncs[i] for i in insert_frames}),
-        "host_syncs_in_insert_keyframe_fused": insert_syncs,
-        "peak_device_memory_mib": peak_mb, "allocated_mib_at_start": allocated_mib,
+        "host_syncs_inside_insertions": sorted({r["syncs"] for r in inserts}),
+        "host_syncs_inside_registrations": sorted({r["syncs"] for r in calls["register"]}),
+        "register_host_ms_median": statistics.median(r["ms"] for r in calls["register"]) if calls["register"] else None,
+        "reloc_calls": [{k: r[k] for k in ("frame", "ms", "syncs", "launches")} for r in calls["reloc"]],
+        "verify_calls": [{k: r[k] for k in ("ms", "syncs", "launches")} for r in calls["verify"]],
+        "correct_calls": [{k: r[k] for k in ("ms", "syncs", "launches")} for r in calls["correct"]],
+        "verify_ms_total": sum(r["ms"] for r in calls["verify"]),
+        "correct_ms_total": sum(r["ms"] for r in calls["correct"]),
+        "peak_device_memory_mib": run["peak_mib"], "allocated_mib_at_start": run["allocated_mib"],
         "per_frame_ms": [round(v, 1) for v in per_frame_ms],
     }
 
+
+def bench_sequence(dev, meta):
+    from gf_orb_slam_tpu_torch import run_slam
+
+    cam = run_slam.BENCH_CAMERA._replace(**{k: meta["camera"][k] for k in ("fx", "fy", "cx", "cy", "width", "height",
+                                                                          "fps")})
+    ts, poses_gt, frames = run_slam.render_sequence(cam, meta["trajectory_frames"], meta["scene_seed"], dev)
+    return cam, ts, poses_gt, frames
+
+
+def run_system_phase(dev, voc):
+    """Phase 5: SlamSystem.process over the bench sequence on the card in
+    bench.py's configuration (place recognition on, the 1M vocabulary
+    preset), held against the reference's recorded run. Raises on any gate."""
+    import torch
+
+    from gf_orb_slam_tpu_torch import run_slam
+
+    meta, z = load_place_fixture("bench")
+    ref = meta["summary"]
+    F = meta["frames"]
+    t0 = time.perf_counter()
+    cam, ts, poses_gt, frames = bench_sequence(dev, meta)
+    frames = frames[:F]
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    run = drive_system(dev, cam, run_slam.bench_config(), ts[:F], poses_gt[:F], frames, voc, seed=0)
+    # One insertion again, on the map it was given, with every sync counted.
+    a, kw = run["last_args"]["insert"]
+    insert_syncs = count_host_syncs(lambda: run["originals"]["insert"](*a, **kw))
+    rec = {"phase": "system", "entry": "pipeline.system.SlamSystem.process", "render_seconds": render_s,
+           **run_record(run, F), "host_syncs_in_insert_keyframe_fused": insert_syncs}
+    ref_insert_frames = [int(f) for f in z["insert_frames"][1:]]  # the initialization frame first
+    rec.update({
+        "ref_first_working": ref["first_working"], "ref_tracked": ref["tracked"],
+        "ref_keyframes_inserted": ref["keyframes_inserted"], "ref_ate_rmse_m": ref["ate_rmse_m"],
+        "ref_loops_closed": ref["loops_closed"],
+        # Reported, not gated: the gates hold the run statistically.
+        "insert_frames_match_reference": rec["insert_frames"] == ref_insert_frames,
+        "insert_frames_not_in_reference": sorted(set(rec["insert_frames"]) - set(ref_insert_frames)),
+        "reference_insert_frames_missed": sorted(set(ref_insert_frames) - set(rec["insert_frames"])),
+    })
     bad = []
-    if not all(np.isfinite(p).all() and p.shape == (7,) for p in est_poses):
+    if not rec["poses_finite"]:
         bad.append("a pose is not finite or not a 7-vector")
-    if first_working < 0 or first_working > ref["first_working"] + WORKING_SLACK:
-        bad.append(f"first WORKING frame {first_working} (reference {ref['first_working']})")
+    if rec["first_working"] < 0 or rec["first_working"] > ref["first_working"] + WORKING_SLACK:
+        bad.append(f"first WORKING frame {rec['first_working']} (reference {ref['first_working']})")
     if rec["lost"]:
         bad.append(f"{rec['lost']} LOST frames")
-    if any(r["launches"] < MIN_INSERT_LAUNCHES for r in inserts):
+    if any(n < MIN_INSERT_LAUNCHES for n in rec["hamming_launches_per_insertion"]):
         bad.append(f"an insertion launched the Hamming kernel fewer than {MIN_INSERT_LAUNCHES} times")
-    if insert_syncs:
-        bad.append(f"insert_keyframe_fused synchronised with the host {insert_syncs} times")
-    if result["tracked"] < TRACKED_SHARE * ref["tracked"]:
-        bad.append(f"tracked {result['tracked']} of {F} (reference {ref['tracked']})")
-    if abs(n_inserted - ref["keyframes_inserted"]) > KF_SHARE * ref["keyframes_inserted"]:
-        bad.append(f"{n_inserted} keyframes inserted (reference {ref['keyframes_inserted']})")
+    if insert_syncs or rec["host_syncs_inside_insertions"] != [0]:
+        bad.append(f"insert_keyframe_fused synchronised with the host ({insert_syncs}, "
+                   f"{rec['host_syncs_inside_insertions']})")
+    if rec["tracked"] < TRACKED_SHARE * ref["tracked"]:
+        bad.append(f"tracked {rec['tracked']} of {F} (reference {ref['tracked']})")
+    if abs(rec["keyframes_inserted"] - ref["keyframes_inserted"]) > KF_SHARE * ref["keyframes_inserted"]:
+        bad.append(f"{rec['keyframes_inserted']} keyframes inserted (reference {ref['keyframes_inserted']})")
+    if rec["ate_rmse_m"] is None or rec["ate_rmse_m"] > ATE_FACTOR * ref["ate_rmse_m"]:
+        bad.append(f"ATE {rec['ate_rmse_m']} m (reference {ref['ate_rmse_m']} m)")
+    if rec["loops_closed"] != ref["loops_closed"]:
+        bad.append(f"{rec['loops_closed']} loops closed (reference {ref['loops_closed']})")
+    if bad:
+        raise AssertionError("system phase outside its gates: " + "; ".join(bad) + f" — {short(rec)}")
+    return rec, {k: run[k] for k in ("last_args", "originals")}
+
+
+def run_relocalization_phase(dev, voc):
+    """Phase 6: the bench sequence with a run of black frames: LOST on them,
+    relocalized from the map by the BoW candidates and PnP, held against the
+    reference's recorded run. Raises on any gate."""
+    import torch
+
+    from gf_orb_slam_tpu_torch import run_slam
+
+    meta, z = load_place_fixture("blackout")
+    ref = meta["summary"]
+    F, (b0, b1) = meta["frames"], meta["black_frames"]
+    cam, ts, poses_gt, frames = bench_sequence(dev, meta)
+    frames = frames[:F].clone()
+    frames[b0 : b1 + 1] = 0.0
+    run = drive_system(dev, cam, run_slam.bench_config(), ts[:F], poses_gt[:F], frames, voc, seed=0)
+    rec = {"phase": "relocalization", "entry": "pipeline.system.SlamSystem.process", "black_frames": [b0, b1],
+           **run_record(run, F)}
+    states = [st for st, _, _ in run["states"]]
+    ref_reloc = int(z["reloc_frames"][0])
+    back = [i for i in range(b1 + 1, F) if states[i] == "WORKING"]
+    lost_frames = [i for i in range(b0 + 1, F) if states[i - 1] == "LOST"]  # frames that ran relocalization
+    rec.update({"states_around_blackout": states[b0 - 1 : ref_reloc + 4], "working_again": back[0] if back else None,
+                "ref_reloc_frame": ref_reloc, "ref_tracked": ref["tracked"], "ref_ate_rmse_m": ref["ate_rmse_m"],
+                "host_syncs_per_lost_frame": sorted({run["syncs"][i] for i in lost_frames})})
+    bad = []
+    if not rec["poses_finite"]:
+        bad.append("a pose is not finite or not a 7-vector")
+    if any(states[i] != "LOST" for i in range(b0, b1 + 1)):
+        bad.append(f"not LOST on the black frames {b0}-{b1}: {states[b0 : b1 + 1]}")
+    if rec["working_again"] is None or rec["working_again"] > ref_reloc + WORKING_SLACK:
+        bad.append(f"WORKING again at {rec['working_again']} (reference {ref_reloc})")
+    if rec["host_syncs_per_lost_frame"] != [1]:
+        bad.append(f"host syncs per lost frame {rec['host_syncs_per_lost_frame']} (expected exactly 1)")
     if rec["ate_rmse_m"] is None or rec["ate_rmse_m"] > ATE_FACTOR * ref["ate_rmse_m"]:
         bad.append(f"ATE {rec['ate_rmse_m']} m (reference {ref['ate_rmse_m']} m)")
     if bad:
-        raise AssertionError("system phase outside its gates: " + "; ".join(bad) + f" — {rec}")
-    return rec
+        raise AssertionError("relocalization phase outside its gates: " + "; ".join(bad) + f" — {short(rec)}")
+    return rec, {k: run[k] for k in ("last_args", "originals")}
+
+
+def run_loop_phase(dev, voc):
+    """Phase 7: the room circuit (radtan-distorted EuRoC camera, the reference
+    CLI's room configuration at GF budget 100, scene seed 0), which closes
+    the loop, held against the reference's recorded run. Raises on any gate."""
+    import torch
+
+    from gf_orb_slam_tpu_torch import run_slam
+    from gf_orb_slam_tpu_torch.geometry.camera import EUROC_CAM
+
+    meta, z = load_place_fixture("room")
+    ref = meta["summary"]
+    F = meta["frames"]
+    t0 = time.perf_counter()
+    ts, poses_gt, frames = run_slam.render_sequence(EUROC_CAM, F, meta["scene_seed"], dev, scene="room")
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    run = drive_system(dev, EUROC_CAM, run_slam.room_config(), ts, poses_gt, frames, voc, seed=0)
+    rec = {"phase": "loop", "entry": "pipeline.system.SlamSystem.process", "render_seconds": render_s,
+           **run_record(run, F)}
+    loops = run["calls"]["correct"]
+    rec.update({"ref_tracked": ref["tracked"], "ref_loops_closed": ref["loops_closed"],
+                "ref_loops": z["loops"].tolist(), "ref_ate_rmse_m": ref["ate_rmse_m"],
+                "ref_keyframes_inserted": ref["keyframes_inserted"],
+                "loop_frames": [r["frame"] for r in loops],
+                "correct_launches_by_shape": {f"{nq}x{nt}": n for (nq, nt), n in
+                                              sorted(sum((r["by_shape"] for r in loops), collections.Counter()).items())},
+                "verify_launches_by_shape": {f"{nq}x{nt}": n for (nq, nt), n in sorted(
+                    sum((r["by_shape"] for r in run["calls"]["verify"]), collections.Counter()).items())}})
+    bad = []
+    if not rec["poses_finite"]:
+        bad.append("a pose is not finite or not a 7-vector")
+    if rec["tracked"] < TRACKED_SHARE * ref["tracked"]:
+        bad.append(f"tracked {rec['tracked']} of {F} (reference {ref['tracked']})")
+    if ref["loops_closed"] >= 1 and rec["loops_closed"] < 1:
+        bad.append(f"no loop closed (reference {ref['loops_closed']})")
+    if rec["ate_rmse_m"] is None or rec["ate_rmse_m"] > ATE_FACTOR * ref["ate_rmse_m"]:
+        bad.append(f"ATE {rec['ate_rmse_m']} m (reference {ref['ate_rmse_m']} m)")
+    if bad:
+        raise AssertionError("loop phase outside its gates: " + "; ".join(bad) + f" — {short(rec)}")
+    return rec, {k: run[k] for k in ("last_args", "originals")}
+
+
+def short(rec: dict) -> dict:
+    """A record without its per-frame lists, for error messages."""
+    return {k: v for k, v in rec.items() if k != "per_frame_ms"}
 
 
 if __name__ == "__main__":

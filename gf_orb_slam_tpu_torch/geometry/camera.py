@@ -30,6 +30,14 @@ class CameraModel(NamedTuple):
         return any(abs(v) > 0 for v in (self.k1, self.k2, self.p1, self.p2, self.k3))
 
 
+# EuRoC cam0 intrinsics with its radtan distortion: the room-circuit camera.
+EUROC_CAM = CameraModel(
+    fx=458.654, fy=457.296, cx=367.215, cy=248.375,
+    k1=-0.28340811, k2=0.07395907, p1=0.00019359, p2=1.76187114e-05,
+    width=752, height=480, fps=20.0,
+)
+
+
 def undistort_normalized(cam: CameraModel, xd: torch.Tensor, iters: int = 8) -> torch.Tensor:
     """Invert radtan by fixed-point iteration (static iteration count)."""
     x = xd

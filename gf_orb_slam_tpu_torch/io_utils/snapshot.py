@@ -45,9 +45,24 @@ def frame_from_numpy(arrays: Mapping[str, np.ndarray], device, prefix: str = "")
     return FrameData(**_select(arrays, prefix, FrameData._fields, device))
 
 
-def load_map(path: str, device) -> MapState:
-    """The map of a reference snapshot (`save_map`'s `map_*` keys) on
-    `device`. Vocabulary and BoW-database keys are ignored."""
+def load_map(path: str, device):
+    """A reference snapshot (`save_map`) on `device`: (MapState, Vocabulary
+    or None, BowDatabase or None). Snapshots from before the sparse BoW
+    database (a dense `db_bow`) carry no database here."""
+    from gf_orb_slam_tpu_torch.retrieval import keyframe_db as kdb
+    from gf_orb_slam_tpu_torch.retrieval import vocabulary as voc_mod
+
     with np.load(path) as z:
-        return map_state_from_numpy({k: z[k] for k in z.files if k.startswith("map_")}, device,
-                                    prefix="map_")
+        arrays = {k: z[k] for k in z.files}
+    m = map_state_from_numpy({k: v for k, v in arrays.items() if k.startswith("map_")}, device, prefix="map_")
+    voc = None
+    if "voc_centers" in arrays:
+        k, L = (int(x) for x in arrays["voc_kL"])
+        opt = {f: to_tensor(arrays[f"voc_{f}"], device) for f in ("children", "word_of_node")
+               if f"voc_{f}" in arrays}
+        voc = voc_mod.Vocabulary(centers=to_tensor(arrays["voc_centers"], device),
+                                 weights=to_tensor(arrays["voc_weights"], device), k=k, L=L, **opt)
+    db = None
+    if "db_bow_ids" in arrays:
+        db = kdb.BowDatabase(**_select(arrays, "db_", kdb.BowDatabase._fields, device))
+    return m, voc, db

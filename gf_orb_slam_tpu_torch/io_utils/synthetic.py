@@ -1,12 +1,14 @@
-"""Synthetic multi-plane scene with exact ground-truth poses (port of the
-planes scene of gf_orb_slam_tpu/io_utils/synthetic.py): a camera flies past
-textured fronto-parallel planes at different depths, each frame rendered by
-ray–plane intersection and bilinear texture sampling, on the device of the
-scene's textures.
+"""Synthetic scenes with exact ground-truth poses (port of
+gf_orb_slam_tpu/io_utils/synthetic.py): the planes scene (a camera flies
+past textured fronto-parallel planes at different depths) and the room
+scene (four textured walls, circled by a camera looking outward: the
+loop-closing sequence), each frame rendered by ray–plane intersection and
+bilinear texture sampling on the device of the scene's textures; the room
+is rendered through the camera's radtan distortion.
 
-The texture generator is the reference's numpy code, copied (tests hold the
-textures equal); `trajectory` is numpy plus the port's quaternion ops on the
-CPU.
+The texture generators are the reference's numpy code, copied (tests hold
+the textures equal); the trajectories are numpy plus the port's quaternion
+ops on the CPU.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from gf_orb_slam_tpu_torch.geometry import quat, se3
+from gf_orb_slam_tpu_torch.geometry import camera as cam_mod
 from gf_orb_slam_tpu_torch.geometry.camera import CameraModel
 
 
@@ -32,16 +35,17 @@ def blob_textures(seed: int, n_planes: int, tex_size: int) -> np.ndarray:
     """(n_planes, T, T) float32 blobby high-contrast textures with fine
     noise, drawn exactly as the reference's make_scene draws them."""
     rng = np.random.default_rng(seed)
-    texs = []
-    for _ in range(n_planes):
-        t = np.full((tex_size, tex_size), 128.0, np.float32)
-        for _ in range(tex_size // 2):
-            y, x = rng.integers(0, tex_size - 24, 2)
-            sy, sx = rng.integers(6, 24, 2)
-            t[y : y + sy, x : x + sx] = rng.uniform(10, 245)
-        t += rng.uniform(-12, 12, t.shape).astype(np.float32)
-        texs.append(np.clip(t, 0, 255))
-    return np.stack(texs)
+    return np.stack([_blob_texture(rng, tex_size) for _ in range(n_planes)])
+
+
+def _blob_texture(rng, tex_size):
+    t = np.full((tex_size, tex_size), 128.0, np.float32)
+    for _ in range(tex_size // 2):
+        y, x = rng.integers(0, tex_size - 24, 2)
+        sy, sx = rng.integers(6, 24, 2)
+        t[y : y + sy, x : x + sx] = rng.uniform(10, 245)
+    t += rng.uniform(-12, 12, t.shape).astype(np.float32)
+    return np.clip(t, 0, 255)
 
 
 def make_scene(
@@ -119,4 +123,106 @@ def trajectory(
         q_wc = quat.v2q(torch.tensor([pitch, yaw, 0.0], dtype=torch.float32))
         t_wc = torch.tensor([tx, ty, tz], dtype=torch.float32)
         poses.append(se3.inverse(se3.make_pose(q_wc, t_wc)).numpy())
+    return ts.astype(np.float64), np.stack(poses)
+
+
+# ---------------------------------------------------------------------------
+# The room scene
+# ---------------------------------------------------------------------------
+
+
+class GeneralScene(NamedTuple):
+    """Textured planes in arbitrary poses (the room's walls)."""
+
+    textures: torch.Tensor  # (n, T, T) float32
+    plane_q: torch.Tensor   # (n, 4) world←plane rotation; plane-local +z = normal
+    plane_c: torch.Tensor   # (n, 3) plane centre in world
+    extents: torch.Tensor   # (n, 2) half-sizes (x, y) in world units
+    tex_size: int
+
+
+def make_room_scene(seed: int = 0, half_size: float = 8.0, height: float = 5.0, tex_size: int = 1024,
+                    device=None) -> GeneralScene:
+    """A square room of 4 distinctly textured walls facing inward."""
+    rng = np.random.default_rng(seed)
+    texs, qs, cs, es = [], [], [], []
+    for j in range(4):
+        phi = j * np.pi / 2.0
+        texs.append(_blob_texture(rng, tex_size))
+        # The wall's normal points inward: Ry(phi + pi) maps +z to -(sin, 0, cos).
+        qs.append(quat.v2q(torch.tensor([0.0, phi + np.pi, 0.0], dtype=torch.float32)))
+        cs.append(half_size * np.asarray([np.sin(phi), 0.0, np.cos(phi)], np.float32))
+        es.append([half_size, height])
+    f32 = dict(dtype=torch.float32, device=device)
+    return GeneralScene(
+        textures=torch.from_numpy(np.stack(texs)).to(device),
+        plane_q=torch.stack(qs).to(device),
+        plane_c=torch.tensor(np.stack(cs), **f32),
+        extents=torch.tensor(es, **f32),
+        tex_size=tex_size,
+    )
+
+
+def render_general(scene: GeneralScene, cam: CameraModel, pose_cw: torch.Tensor) -> torch.Tensor:
+    """Arbitrary-pose planes through the full camera model, radtan
+    distortion included: each distorted pixel's ray comes from the
+    tracker's own fixed-point undistortion. (H, W) float32 in [0, 255]."""
+    dev = scene.textures.device
+    H, W, T = cam.height, cam.width, scene.tex_size
+    yy = torch.arange(H, dtype=torch.float32, device=dev)[:, None].expand(H, W)
+    xx = torch.arange(W, dtype=torch.float32, device=dev)[None, :].expand(H, W)
+    xn = cam_mod.pixel_to_normalized(cam, torch.stack([xx, yy], dim=-1))
+    if cam.has_distortion:
+        xn = cam_mod.undistort_normalized(cam, xn)
+    rays_c = torch.cat([xn, torch.ones((H, W, 1), device=dev)], dim=-1)
+
+    pose_wc = se3.inverse(pose_cw.to(device=dev, dtype=torch.float32))
+    C = se3.pose_t(pose_wc)
+    rays_w = quat.rotate(se3.pose_q(pose_wc)[None, None, :], rays_c)
+
+    best_depth = torch.full((H, W), float("inf"), device=dev)
+    out = torch.full((H, W), 96.0, device=dev)
+    for p in range(scene.textures.shape[0]):
+        R_wp = quat.q2r(scene.plane_q[p])
+        n_w = R_wp[:, 2]
+        denom = torch.sum(rays_w * n_w, dim=-1)
+        denom = torch.where(torch.abs(denom) < 1e-9, 1e-9, denom)
+        lam = torch.dot(scene.plane_c[p] - C, n_w) / denom
+        Xw = C[None, None, :] + lam[..., None] * rays_w
+        local = (Xw - scene.plane_c[p]) @ R_wp                 # plane-local coordinates
+        ex, ey = scene.extents[p, 0], scene.extents[p, 1]
+        u = (local[..., 0] + ex) / (2.0 * ex) * T
+        v = (local[..., 1] + ey) / (2.0 * ey) * T
+        inside = (lam > 0.1) & (u >= 0) & (u < T - 1) & (v >= 0) & (v < T - 1)
+        u0 = torch.clamp(torch.floor(u).to(torch.int32), 0, T - 2)
+        v0 = torch.clamp(torch.floor(v).to(torch.int32), 0, T - 2)
+        fu, fv = u - u0, v - v0
+        t = scene.textures[p]
+        u0l, v0l = u0.long(), v0.long()
+        val = (
+            t[v0l, u0l] * (1 - fu) * (1 - fv)
+            + t[v0l, u0l + 1] * fu * (1 - fv)
+            + t[v0l + 1, u0l] * (1 - fu) * fv
+            + t[v0l + 1, u0l + 1] * fu * fv
+        )
+        closer = inside & (lam < best_depth)
+        best_depth = torch.where(closer, lam, best_depth)
+        out = torch.where(closer, val, out)
+    return out
+
+
+def circuit_trajectory(
+    n_frames: int, fps: float = 20.0, radius: float = 4.0, bob: float = 0.08,
+    revs: float = 1.0, phase: float = 0.0,
+) -> tuple[np.ndarray, np.ndarray]:
+    """The camera orbits the room's centre looking radially outward for
+    `revs` revolutions; after a full one the starting view recurs with
+    whatever drift has accumulated. Returns (timestamps, poses_cw)."""
+    ts = np.arange(n_frames, dtype=np.float64) / fps
+    poses = []
+    for i in range(n_frames):
+        th = phase + 2.0 * np.pi * revs * i / n_frames
+        pos = np.asarray([radius * np.sin(th), bob * np.sin(3.0 * th), radius * np.cos(th)], np.float32)
+        q_wc = quat.v2q(torch.tensor([0.0, th, 0.0], dtype=torch.float32))
+        poses.append(se3.inverse(se3.make_pose(q_wc, torch.from_numpy(pos))).numpy())
     return ts.astype(np.float64), np.stack(poses)

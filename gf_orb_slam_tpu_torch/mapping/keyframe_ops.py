@@ -154,6 +154,84 @@ def cull_points(
 # ---------------------------------------------------------------------------
 
 
+def fuse_into_keyframe(
+    cam: CameraModel,
+    m: ms.MapState,
+    target_kf,
+    cand_points: torch.Tensor,  # (M,) point ids to project
+    cand_use: torch.Tensor,     # (M,) bool
+    radius: float = 3.0,
+    scale: float = 1.2,
+    n_levels: int = 8,
+) -> ms.MapState:
+    """ORBmatcher::Fuse into one keyframe (the loop's SearchAndFuse): where a
+    projected candidate matches a keypoint, claim the free keypoint (case A)
+    or merge with its point, the better-observed one surviving (case B).
+    Merges rewire one level, as the reference's (a→b→c leaves references to
+    a killed id until a later fuse); conflicting writes resolve last-wins."""
+    dev = m.kf_pose.device
+    P = m.pt_capacity
+    t1 = ms.kf_index(target_kf, dev)
+    lc = level_consts(scale, n_levels, dev)
+    cand = cand_points.long()
+    pose = _row(m.kf_pose, t1)
+    pts = m.pt_pos[cand]
+    ok = cand_use & m.pt_valid[cand]
+
+    # Candidates the target already observes are skipped (IsInKeyFrame).
+    obs_t = _row(m.kf_obs_point, t1)
+    in_target = ms.mark(P, torch.where(obs_t >= 0, obs_t, P), dev)
+    ok = ok & ~in_target[cand]
+
+    uvp, _, front = project(cam, se3.transform_point(pose, pts))
+    view = pts - se3.pose_t(se3.inverse(pose))[None, :]
+    dist = torch.linalg.vector_norm(view, dim=-1)
+    cos_view = torch.sum(view * m.pt_normal[cand], dim=-1) / torch.clamp(dist, min=1e-9)
+    in_range = (dist >= m.pt_min_dist[cand] * 0.8) & (dist <= m.pt_max_dist[cand] * 1.2)
+    ok = ok & front & in_range & (cos_view > 0.5)
+    pred_oct = predict_octave(dist, m.pt_max_dist[cand], scale, n_levels)
+    rad = radius * lc.sf[pred_oct.long()]
+
+    pmask = matching.projection_mask(uvp, ok, _row(m.kf_kp_uv, t1), _row(m.kf_kp_octave, t1),
+                                     _row(m.kf_kp_valid, t1), rad, pred_oct)
+    res = matching.match(m.pt_desc[cand], _row(m.kf_kp_desc, t1), pmask, max_dist=matching.TH_LOW)
+    hit = res.matched & ok
+    idx = res.idx.long()
+    kp_point = obs_t[idx]
+    n_obs = ms.point_observation_count(m)
+
+    # Case A: a free keypoint slot is claimed, the last claim of a slot winning.
+    N = obs_t.shape[0]
+    claim = hit & (kp_point == ms.NO_POINT)
+    win = ms.last_wins(idx, claim, N)
+    obs_row = ms.set_drop(obs_t, torch.where(win, idx, N), cand)
+    m = m._replace(kf_obs_point=m.kf_obs_point.index_copy(0, t1, obs_row[None]))
+
+    # Case B: occupied by a different point → keep the better-observed one,
+    # through a one-level remap table (the last write of an id winning).
+    dup = hit & (kp_point != ms.NO_POINT) & (kp_point != cand)
+    keep_existing = n_obs[torch.clamp(kp_point, min=0).long()] >= n_obs[torch.clamp(cand, min=0)]
+    old_id = torch.where(keep_existing, cand, kp_point.long())
+    new_id = torch.where(keep_existing, kp_point.long(), cand)
+    ar = torch.arange(P, dtype=torch.int32, device=dev)
+    remap = ms.set_drop(ar, torch.where(ms.last_wins(old_id, dup, P), old_id, P), new_id)
+    obs = m.kf_obs_point
+    obs = torch.where(obs >= 0, remap[torch.clamp(obs, min=0).long()], obs)
+    killed = m.pt_valid & (remap != ar)
+    # Each dead point donates its counters once, to its survivor remap[p].
+    surv = torch.where(killed, remap, P).long()
+    add_vis = torch.zeros(P + 1, dtype=torch.int32, device=dev).index_add_(
+        0, surv, torch.where(killed, m.pt_visible, 0))[:P]
+    add_fnd = torch.zeros(P + 1, dtype=torch.int32, device=dev).index_add_(
+        0, surv, torch.where(killed, m.pt_found, 0))[:P]
+    return m._replace(
+        kf_obs_point=obs,
+        pt_valid=m.pt_valid & ~killed,
+        pt_visible=m.pt_visible + add_vis,
+        pt_found=m.pt_found + add_fnd,
+    )
+
+
 def fuse_points_into_keyframes(
     cam: CameraModel,
     m: ms.MapState,

@@ -202,6 +202,19 @@ def covisibility_row(m: MapState, kf_id) -> torch.Tensor:
     return w.index_fill(0, k1, 0)
 
 
+def spanning_tree_parent(m: MapState, W: torch.Tensor | None = None) -> torch.Tensor:
+    """(K,) int32 parent = the earlier keyframe of highest covisibility (the
+    first of equal ones); −1 for roots and invalid keyframes."""
+    if W is None:
+        W = covisibility(m)
+    K = m.kf_capacity
+    earlier = torch.tril(torch.ones((K, K), dtype=torch.bool, device=W.device), diagonal=-1)
+    W_earlier = torch.where(earlier, W, -1)
+    parent = torch.argmax(W_earlier, dim=1).to(torch.int32)
+    has = W_earlier.amax(dim=1) > 0
+    return torch.where(m.kf_valid & has, parent, -1)
+
+
 def point_observation_count_raw(m: MapState) -> torch.Tensor:
     """(P,) int32 observation counts without the pt_valid mask (fused
     programs run the scatter once and re-mask it per stage)."""
@@ -365,6 +378,20 @@ def compact_keyframes(m: MapState):
         n_kf=n_valid,
     )
     return m2, perm.to(torch.int32), n_valid
+
+
+def replace_point(m: MapState, old_id, new_id) -> MapState:
+    """MapPoint::Replace: every observation of old_id is rewired to new_id,
+    which takes over its counters; old_id dies."""
+    dev = m.pt_pos.device
+    o1, n1 = kf_index(old_id, dev), kf_index(new_id, dev)
+    obs = m.kf_obs_point
+    return m._replace(
+        kf_obs_point=torch.where(obs == o1.to(obs.dtype), n1.to(obs.dtype), obs),
+        pt_valid=m.pt_valid.index_fill(0, o1, False),
+        pt_found=m.pt_found.index_add(0, n1, m.pt_found.index_select(0, o1)),
+        pt_visible=m.pt_visible.index_add(0, n1, m.pt_visible.index_select(0, o1)),
+    )
 
 
 def refresh_point_stats(

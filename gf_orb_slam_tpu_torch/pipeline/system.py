@@ -1,19 +1,24 @@
 """The SLAM system's host state machine (port of
 gf_orb_slam_tpu/pipeline/system.py with its synchronous semantics): two-view
-initialization, per-frame tracking, keyframe decisions and the fused
-keyframe insertion, on one device.
+initialization, per-frame tracking, keyframe decisions, the fused keyframe
+insertion, and place recognition — the BoW vocabulary and keyframe
+database, relocalization of a LOST system, and Sim(3) loop closing.
 
 Left out of the port: the reference's pipelining for a remote accelerator
 (frames in flight, deferred readback, eager finalize), because a local card
-needs none; and place recognition — loop closing, relocalization and the BoW
-vocabulary — which ROADMAP slice 3 ports. With both flags off the vocabulary
-and BoW database feed nothing that changes the map or the trajectory
-(reference system.py:657 trains it, :839 and :876 feed the database), so the
-port skips them. A LOST frame only counts itself (reference :620-627).
+needs none; its loop-recall instrumentation (`loop_gt_overlap`,
+`loop_probe_floor`, ROADMAP queue A). Where the reference defers an
+insertion's bookkeeping to the next frame, the port reads it right after the
+insertion and runs the loop check at the point of the next frame where the
+reference's synchronous run does: after that frame's tracking step, before
+its result is read (or at relocalization, compaction and `flush`).
 
 Host reads: one packed copy of (ok, n_inliers, pose, n_total) per tracked
-frame, the tracking step's own wide-radius branch, and one packed copy of
-(kf_id, culled_kf, n_ref) after each insertion. The bootstrap reads freely.
+frame and the tracking step's own wide-radius branch; one packed copy of
+(kf_id, culled_kf, n_ref) after each insertion, which also carries the loop
+candidates and their covisibility rows once the map is old enough; one of
+(ok, n_inliers, pose) per LOST frame. Verifying a loop candidate reads its
+`ok`; the bootstrap and vocabulary training read freely.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import torch.nn.functional as F
 from gf_orb_slam_tpu_torch.geometry import se3
 from gf_orb_slam_tpu_torch.geometry.camera import CameraModel
 from gf_orb_slam_tpu_torch.io_utils.timing import TimeLog
+from gf_orb_slam_tpu_torch.loop import loop_closing
 from gf_orb_slam_tpu_torch.mapping import frame as frame_mod
 from gf_orb_slam_tpu_torch.mapping import map_state as ms
 from gf_orb_slam_tpu_torch.ops import matching, orb
@@ -35,6 +41,8 @@ from gf_orb_slam_tpu_torch.ops.pyramid import level_consts
 from gf_orb_slam_tpu_torch.pipeline import local_mapping
 from gf_orb_slam_tpu_torch.pipeline import track_view as tv
 from gf_orb_slam_tpu_torch.pipeline import tracking
+from gf_orb_slam_tpu_torch.retrieval import keyframe_db as kdb
+from gf_orb_slam_tpu_torch.retrieval import vocabulary as voc_mod
 from gf_orb_slam_tpu_torch.solvers import initializer, local_ba
 
 NO_CUDA = 'no CUDA device is available: pass device="cpu" (--device cpu on the command line) to run on the CPU'
@@ -50,9 +58,6 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-SLICE3 = "place recognition is not ported yet (ROADMAP slice 3: retrieval, relocalization, loop closing)"
-
-
 class State(enum.Enum):
     """Tracking state (Tracking.h eTrackingState)."""
 
@@ -65,9 +70,8 @@ class State(enum.Enum):
 
 @dataclass
 class SlamConfig:
-    """The reference's SlamConfig, fields and defaults, without the
-    pipelining fields. Its defaults turn place recognition on, which the
-    port refuses: set enable_loop_closing and enable_relocalization False."""
+    """The reference's SlamConfig, fields and defaults (place recognition
+    on), without the pipelining fields."""
 
     n_features: int = 800
     n_levels: int = 8
@@ -90,14 +94,14 @@ class SlamConfig:
     init_min_points: int = 0        # >0: reject a bootstrap whose second
                                     # keyframe keeps fewer BA inliers
     triangulate_neighbors: int = 3
-    # place recognition / loop closing (ROADMAP slice 3)
+    # place recognition / loop closing
     enable_loop_closing: bool = True
     enable_relocalization: bool = True
     vocab_k: int = 10
     vocab_L: int = 3
     vocab_train_kfs: int = 4
     loop_min_kf_gap: int = 10
-    loop_probe_floor: int = 0
+    loop_probe_floor: int = 0       # >0: the reference's gate-study probe (not ported)
     view_size: int = 4096           # local-map tracking view capacity
     max_lost_frames: int = 100
 
@@ -114,10 +118,8 @@ class FrameLog:
 class SlamSystem:
     def __init__(self, cam: CameraModel, cfg: SlamConfig | None = None, device=None, seed: int = 0):
         cfg = cfg or SlamConfig()
-        if cfg.enable_loop_closing:
-            raise NotImplementedError(f"enable_loop_closing=True: {SLICE3}")
-        if cfg.enable_relocalization:
-            raise NotImplementedError(f"enable_relocalization=True: {SLICE3}")
+        if cfg.loop_probe_floor > 0:
+            raise NotImplementedError("loop_probe_floor > 0: the loop-gate probe is not ported (ROADMAP queue A)")
         self.cam = cam
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -128,9 +130,9 @@ class SlamSystem:
         # Initialization extractor with 2x features, whose frames become the
         # first two keyframes; the map's keypoint capacity is sized for it.
         self.init_orb_cfg = self.orb_cfg._replace(n_features=2 * cfg.n_features)
-        # The initializer's hypotheses come from this generator; JAX's
-        # threefry stream cannot be reproduced, so runs are compared
-        # statistically (or with injected samples).
+        # The initializer's, PnP's and Sim3 RANSAC's samples come from this
+        # generator; JAX's threefry stream cannot be reproduced, so runs are
+        # compared statistically (or with injected samples).
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.state = State.NO_IMAGES_YET
@@ -150,8 +152,15 @@ class SlamSystem:
         self.trajectory: list[tuple[float, np.ndarray]] = []
         self.logs: list[FrameLog] = []
         self.frames_since_init = 0
-        self.n_loops_closed = 0      # loop closing is not ported: stays 0
         self.lost_frames = 0
+        # place recognition
+        self.voc: voc_mod.Vocabulary | None = None
+        self._preset_voc: voc_mod.Vocabulary | None = None
+        self.bow_db: kdb.BowDatabase | None = None
+        self.loop_detector = loop_closing.LoopDetector()
+        self.n_loops_closed = 0
+        self.n_compactions = 0
+        self._pending_loop: dict | None = None   # the last insertion's loop candidates
         # Per-frame key of the tracking step, advanced on the device.
         self._key = torch.zeros(2, dtype=torch.int64, device=self.device)
         self.track_view = tv.empty_view(cfg.view_size, cfg.max_points, self.device)
@@ -164,11 +173,41 @@ class SlamSystem:
         )
 
     # ------------------------------------------------------------------
-    def set_vocabulary(self, voc):
-        raise NotImplementedError(f"a preset vocabulary: {SLICE3}")
+    def set_vocabulary(self, voc: voc_mod.Vocabulary):
+        """Use a pretrained vocabulary (main.cc loads ORBvoc at startup)
+        instead of one trained on the first keyframes; it survives reset().
+        Keyframes already in the map are registered with it (the reference
+        starts an empty database and forgets them)."""
+        self.voc = self._preset_voc = voc.to(self.device)
+        self.bow_db = self._register_all(self.voc)
 
-    def load_map_state(self, m, voc=None, db=None):
-        raise NotImplementedError(f"resuming from a saved map relocalizes: {SLICE3}")
+    def _register_all(self, voc) -> kdb.BowDatabase:
+        """A database holding every valid keyframe of the map."""
+        m = self.map
+        db = kdb.empty_db(m.kf_capacity, m.kp_capacity, voc.n_words, device=self.device)
+        for k in np.flatnonzero(m.kf_valid.cpu().numpy()):
+            db = kdb.add_keyframe(db, voc, int(k), m.kf_kp_desc[int(k)], m.kf_kp_valid[int(k)])
+        return db
+
+    def load_map_state(self, m: ms.MapState, voc=None, db=None):
+        """Resume from a saved map (io_utils/snapshot.py): the system starts
+        LOST and relocalizes against it. Its capacities must match this
+        configuration. Without a database, the map's keyframes are
+        registered with the vocabulary (given, preset or trained)."""
+        if m.kp_capacity != self.map.kp_capacity:
+            raise ValueError(
+                f"snapshot keypoint capacity {m.kp_capacity} != configured {self.map.kp_capacity} "
+                "(2*n_features) — load with the same config")
+        self.map = ms.MapState(*(t.to(self.device) for t in m))
+        self.n_kf = int(self.map.kf_valid.sum())
+        if voc is not None:
+            self.voc = self._preset_voc = voc.to(self.device)
+        if db is not None:
+            self.bow_db = kdb.BowDatabase(*(t.to(self.device) for t in db))
+        elif self.voc is not None:
+            self.bow_db = self._register_all(self.voc)
+        self.state = State.LOST
+        self.lost_frames = 0
 
     # ------------------------------------------------------------------
     def process(self, img, timestamp: float) -> FrameLog:
@@ -316,6 +355,9 @@ class SlamSystem:
         self.last_ts = timestamp
         self.frames_since_init += 1
         self.time_log.end("local_map_track")
+        # The last insertion's loop check, where the reference's synchronous
+        # run finalizes it: after this frame's step, before its result.
+        self._close_pending_loop()
 
         # The frame's one read: ok, n_inliers, pose and n_total in one copy
         # (the counts are exact in float32).
@@ -332,7 +374,7 @@ class SlamSystem:
                 self.reset()
             else:
                 self.state = State.LOST
-                self.last_frame = frame_now
+                self.last_frame = frame_now  # relocalization can reuse this extraction
             return
 
         log.pose_cw = pose_np
@@ -356,8 +398,9 @@ class SlamSystem:
                 self.time_log.end("keyframe_insert")
 
     def reset(self):
-        """Full reset (Tracking::Reset): clear the map and return to
-        NOT_INITIALIZED. The trajectory so far is kept for evaluation."""
+        """Full reset (Tracking::Reset): clear the map and the BoW state and
+        return to NOT_INITIALIZED (a preset vocabulary stays). The
+        trajectory so far is kept for evaluation."""
         self.map = self._empty_map()
         self.state = State.NOT_INITIALIZED
         self.n_kf = 0
@@ -365,32 +408,129 @@ class SlamSystem:
         self.velocity = None
         self.init_frame = None
         self.last_obs = None
+        self.bow_db = None
+        self.voc = None
+        self.loop_detector.reset()
+        self._pending_loop = None
+        if self._preset_voc is not None:
+            self.set_vocabulary(self._preset_voc)
         self.lost_frames = 0
         self.track_view = tv.empty_view(self.cfg.view_size, self.cfg.max_points, self.device)
 
     def flush(self):
-        """Nothing is deferred in the synchronous system; kept so callers of
-        the reference's API run unchanged."""
+        """Run the loop check the last insertion left; call at sequence end
+        before reading results."""
+        self._close_pending_loop()
 
     def _compact_keyframes(self):
-        """Renumber live keyframes to the front."""
-        m2, _, n_valid = ms.compact_keyframes(self.map)
+        """Renumber live keyframes to the front, the BoW database with them,
+        and forget the id-keyed loop state."""
+        self._close_pending_loop()
+        self.n_compactions += 1
+        m2, perm, n_valid = ms.compact_keyframes(self.map)
         self.map = m2
+        if self.bow_db is not None:
+            self.bow_db = kdb.permute(self.bow_db, perm)
+        self.loop_detector.reset()
         self.n_kf = int(n_valid)
         if self.n_kf > 0:
             self.track_view = tv.compute_track_view(self.map, self.n_kf - 1, view_size=self.cfg.view_size)
 
     # ------------------------------------------------------------------
     def _relocalize(self, frame, timestamp, log):
-        """With relocalization off (the only setting ported), a LOST frame
-        is only counted."""
+        """Tracking::Relocalisation: BoW candidates, their BoW-gated matches,
+        PnP RANSAC and local-map tracking in one call, then one read."""
+        self._close_pending_loop()
         self.lost_frames += 1
+        cfg = self.cfg
+        if not (cfg.enable_relocalization and self.voc is not None and self.lost_frames <= cfg.max_lost_frames):
+            return
+        m = self.map
+        words, _ = voc_mod.quantize(self.voc, frame.desc, frame.valid)
+        cand, ok = kdb.detect_reloc_candidates(self.bow_db, ms.covisibility(m), voc_mod.bow_vector(self.voc, words),
+                                               max_candidates=4)
+        res, reloc_view = tracking.relocalize_fused(
+            self.cam, m, self.bow_db.words, frame, words, cand, ok, self.generator,
+            scale=cfg.scale, n_levels=cfg.n_levels, view_size=cfg.view_size,
+        )
+        packed = torch.cat([res.ok.to(torch.float32)[None], res.n_inliers.to(torch.float32)[None],
+                            res.pose]).cpu().numpy()
+        if not packed[0]:
+            return
+        pose_np = packed[2:9]
+        self.track_view = reloc_view
+        self.state = State.WORKING
+        self.lost_frames = 0
+        self.last_reloc_frame = self.frame_id
+        self.velocity = se3.identity_pose(device=self.device)
+        self.last_pose = res.pose
+        self.last_obs = res.obs_point
+        self.last_frame = frame
+        self.last_ts = timestamp
+        log.pose_cw = pose_np
+        log.n_inliers = int(packed[1])
+        self.trajectory.append((timestamp, pose_np))
+
+    # ------------------------------------------------------------------
+    def _maybe_train_vocabulary(self):
+        """Without a preset vocabulary, train one on the keyframes' valid
+        descriptors once vocab_train_kfs keyframes exist, and register them."""
+        if self.voc is not None or self.n_kf < self.cfg.vocab_train_kfs:
+            return
+        m = self.map
+        kf_ids = np.flatnonzero(m.kf_valid.cpu().numpy())
+        desc, valid = m.kf_kp_desc.cpu().numpy(), m.kf_kp_valid.cpu().numpy()
+        corpus = np.concatenate([desc[k][valid[k]] for k in kf_ids], axis=0)
+        self.voc = voc_mod.train_vocabulary(corpus, k=self.cfg.vocab_k, L=self.cfg.vocab_L, device=self.device)
+        self.bow_db = self._register_all(self.voc)
+
+    # ------------------------------------------------------------------
+    def _close_pending_loop(self):
+        if self._pending_loop is not None:
+            pending, self._pending_loop = self._pending_loop, None
+            self.time_log.begin("loop_closing")
+            self._try_close_loop(pending)
+            self.time_log.end("loop_closing")
+
+    def _try_close_loop(self, p: dict) -> bool:
+        """DetectLoop's consistency check on the host, then ComputeSim3 and
+        CorrectLoop for the first consistent candidate that verifies."""
+        kf_int = p["kf"]
+        cand_np = p["cand"]
+        ok_np = p["ok"] & (cand_np < kf_int - self.cfg.loop_min_kf_gap)  # not against recent keyframes
+        row_by_cand = {int(c): p["covis_c"][i] for i, c in enumerate(cand_np)}
+        pairs = self.loop_detector.update_streaks(
+            cand_np, ok_np, lambda c: np.flatnonzero(row_by_cand[int(c)] > 15).tolist())
+        th = self.loop_detector.consistency_threshold
+        m = self.map
+        for c, streak in pairs:
+            if streak < th:
+                continue
+            lm = loop_closing.verify_candidate(self.cam, m, self.bow_db, kf_int, c, self.generator,
+                                               scale=self.cfg.scale, n_levels=self.cfg.n_levels)
+            if not bool(lm.ok):
+                continue
+            k1 = ms.kf_index(kf_int, self.device)
+            old_q_pose = m.kf_pose.index_select(0, k1)[0]
+            self.map = loop_closing.correct_loop(m, kf_int, c, lm.S12, p["covis"], cam=self.cam,
+                                                 scale=self.cfg.scale, n_levels=self.cfg.n_levels)
+            # The tracker's pose moves into the corrected gauge through the
+            # query keyframe (LoopClosing.cc:429-470); velocity is relative.
+            if self.last_pose is not None:
+                rel = se3.compose(self.last_pose, se3.inverse(old_q_pose))
+                self.last_pose = se3.compose(rel, self.map.kf_pose.index_select(0, k1)[0])
+            self.n_loops_closed += 1
+            self.loop_detector.reset()
+            self.track_view = tv.compute_track_view(self.map, kf_int, view_size=self.cfg.view_size)
+            return True
+        return False
 
     # ------------------------------------------------------------------
     def _insert_keyframe(self, frame, pose, obs_point, timestamp):
         """CreateNewKeyFrame + the LocalMapping sequence, one call with no
-        host read (pipeline/local_mapping.py); its three scalars are read
-        right after."""
+        host read (pipeline/local_mapping.py), then the BoW registration and
+        loop-candidate ranking (no host read either); their results are read
+        right after in one copy."""
         cfg = self.cfg
         pad = self.map.kp_capacity - frame.capacity
 
@@ -411,10 +551,29 @@ class SlamSystem:
         self.n_kf += 1
         self.last_kf_frame = self.frame_id
         self.track_view = res.view
-        # (kf_id, culled_kf, n_ref) in one copy; only n_ref feeds the host
-        # (culled keyframes matter to the BoW database, not ported).
-        scalars = torch.stack([res.kf_id, res.culled_kf, res.n_ref]).cpu().numpy()
-        self.n_ref_tracked = int(scalars[2])
+
+        self._maybe_train_vocabulary()
+        parts = [torch.stack([res.kf_id, res.culled_kf, res.n_ref]).to(torch.int32)]
+        do_detect = False
+        if self.voc is not None:
+            # A keyframe culled by this insertion is tombstoned in the map but
+            # still valid in the database: excluded from the ranking here,
+            # erased from the database below.
+            do_detect = cfg.enable_loop_closing and self.n_kf > cfg.loop_min_kf_gap
+            self.bow_db, covis, _, covis_c, cand, ok = kdb.register_and_detect(
+                self.bow_db, self.voc, self.map, res.kf_id, res.culled_kf, max_candidates=6, do_detect=do_detect)
+            if do_detect:
+                parts += [cand, ok.to(torch.int32), covis_c.reshape(-1)]
+        packed = torch.cat(parts).cpu().numpy()
+        kf_id, culled = int(packed[0]), int(packed[1])
+        self.n_ref_tracked = int(packed[2])
+        if culled >= 0 and self.bow_db is not None:
+            self.bow_db = kdb.erase_keyframe(self.bow_db, culled)
+        if do_detect:
+            C, K = cand.shape[0], self.map.kf_capacity  # candidates' covisibility rows: DetectLoop's groups
+            rest = packed[3:]
+            self._pending_loop = {"kf": kf_id, "cand": rest[:C], "ok": rest[C : 2 * C].astype(bool),
+                                  "covis_c": rest[2 * C :].reshape(C, K), "covis": covis}
         return res
 
     # ------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Per-frame tracking (port of gf_orb_slam_tpu/pipeline/tracking.py):
 motion-model tracking, local-map tracking with optional Good-Feature
-selection in "subset" mode, and the fused WORKING-state step.
+selection in "subset" mode, the fused WORKING-state step, and the fused
+relocalization of a LOST frame.
 
 The reference's `mode="drop"` scatters (index N or P = drop) become writes
 into an N+1 (P+1) buffer whose last slot is cut off; every gather index is
@@ -20,8 +21,10 @@ from gf_orb_slam_tpu_torch.mapping import map_state as ms
 from gf_orb_slam_tpu_torch.mapping.frame import FrameData, make_frame
 from gf_orb_slam_tpu_torch.ops import matching
 from gf_orb_slam_tpu_torch.ops.pyramid import level_consts, predict_octave
+from gf_orb_slam_tpu_torch.pipeline import track_view as tv
 from gf_orb_slam_tpu_torch.pipeline.track_view import TrackView
-from gf_orb_slam_tpu_torch.solvers import pose_opt
+from gf_orb_slam_tpu_torch.retrieval import keyframe_db as kdb
+from gf_orb_slam_tpu_torch.solvers import pnp, pose_opt
 
 NO_POINT = ms.NO_POINT
 
@@ -320,6 +323,70 @@ def track_frame_fused(
         pt_found=m.pt_found + r2.found_points.to(torch.int32),
         n_total=r2.n_total,
         next_key=key + torch.arange(2, dtype=key.dtype, device=key.device),  # + [0, 1]
+    )
+
+
+class RelocResult(NamedTuple):
+    ok: torch.Tensor          # () bool — relocalized
+    pose: torch.Tensor        # (7,)
+    obs_point: torch.Tensor   # (N,)
+    n_inliers: torch.Tensor   # () int32
+    best_kf: torch.Tensor     # (1,) int32 — winning candidate keyframe
+
+
+def relocalize_fused(
+    cam: CameraModel,
+    m: ms.MapState,
+    db_words: torch.Tensor,   # (K, N) BoW word ids per keyframe keypoint
+    frame: FrameData,
+    words_f: torch.Tensor,    # (N,) frame word ids
+    cand: torch.Tensor,       # (C,) candidate keyframe ids
+    cand_ok: torch.Tensor,    # (C,) bool
+    generator: torch.Generator,
+    scale: float = 1.2,
+    n_levels: int = 8,
+    view_size: int = 4096,
+    n_hypotheses: int = 128,
+):
+    """Tracking::Relocalisation without a host read: every BoW candidate's
+    gated matching and EPnP RANSAC (a loop over the C candidates, where the
+    reference vmaps), the best candidate by refined inliers, then local-map
+    tracking (GF off) on its covisibility view. Each candidate's PnP samples
+    come from `pnp.sample_pnp` with `generator`. Returns (RelocResult,
+    TrackView of the winner)."""
+    dev = frame.uv.device
+    sigma2 = level_consts(scale, n_levels, dev).sigma2[frame.octave.long()]
+    oks, poses, n_inl, obs0s = [], [], [], []
+    for c in range(cand.shape[0]):
+        c1 = cand[c : c + 1].long()
+        obs_c = m.kf_obs_point.index_select(0, c1)[0]
+        has_pt = m.kf_kp_valid.index_select(0, c1)[0] & (obs_c >= 0)
+        mask = kdb.bow_match_mask(words_f, db_words.index_select(0, c1)[0], frame.valid, has_pt)
+        res = matching.match(frame.desc, m.kf_kp_desc.index_select(0, c1)[0], mask,
+                             max_dist=matching.TH_LOW, ratio=0.75, mutual=True)
+        obs_m = obs_c[res.idx.long()]
+        pt_ids = torch.clamp(obs_m, min=0).long()
+        good = res.matched & (obs_m >= 0) & m.pt_valid[pt_ids] & cand_ok[c]
+        good = good & (good.sum() >= 15)
+        samples = pnp.sample_pnp(good, n_hypotheses, generator)
+        pr = pnp.pnp_ransac(cam, m.pt_pos[pt_ids], frame.uv, sigma2, good, samples)
+        oks.append(pr.ok & cand_ok[c])
+        poses.append(pr.pose)
+        n_inl.append(pr.n_inliers)
+        obs0s.append(torch.where(pr.inliers & good, obs_m, NO_POINT))
+    oks, n_inl = torch.stack(oks), torch.stack(n_inl)
+    j = torch.argmax(torch.where(oks, n_inl, -1), dim=0, keepdim=True)   # (1,): first of the maxima
+    best_kf = cand.index_select(0, j)
+
+    view = tv.compute_track_view(m, best_kf, view_size=view_size)
+    Xv = torch.zeros(13, dtype=frame.uv.dtype, device=dev).index_fill_(0, torch.full((1,), 3, device=dev), 1.0)
+    r2 = track_local_map(cam, m, view, frame, torch.stack(poses).index_select(0, j)[0],
+                         torch.stack(obs0s).index_select(0, j)[0], Xv, None,
+                         scale=scale, n_levels=n_levels, min_inliers=25, use_gf=False)
+    return (
+        RelocResult(ok=oks.index_select(0, j)[0] & r2.ok, pose=r2.pose, obs_point=r2.obs_point,
+                    n_inliers=r2.n_inliers, best_kf=best_kf.to(torch.int32)),
+        view,
     )
 
 

@@ -1,14 +1,17 @@
-"""Command line of the port: run the SLAM system over the synthetic planes
-sequence and write TUM trajectories, the time log and a result JSON, as
-the reference's run_slam.py does.
+"""Command line of the port: run the SLAM system over a synthetic sequence
+(the planes sweep, or the room circuit that closes a loop) and write TUM
+trajectories, the time log and a result JSON, as the reference's
+run_slam.py does.
 
     python -m gf_orb_slam_tpu_torch.run_slam --synthetic 240 --gf-budget 100 --out results/port
+    python -m gf_orb_slam_tpu_torch.run_slam --synthetic 420 --scene room --gf-budget 100
     python -m gf_orb_slam_tpu_torch.run_slam --synthetic 40 --gf-budget 100 --device cpu
 
 The run is on the first CUDA card unless `--device cpu` asks for the CPU.
-Place recognition (loop closing, relocalization) is not ported; the run
-has it off. Frames are rendered on the run's device and rounded to uint8,
-as the camera would deliver them.
+Place recognition (relocalization, loop closing) is on, with the packaged
+1M-word vocabulary (gf_orb_slam_tpu/data/vocab_1m.npz, read by path) unless
+`--vocabulary` names another. Frames are rendered on the run's device and
+rounded to uint8, as the camera would deliver them.
 """
 
 from __future__ import annotations
@@ -23,31 +26,48 @@ import numpy as np
 import torch
 
 from gf_orb_slam_tpu_torch.geometry import se3
-from gf_orb_slam_tpu_torch.geometry.camera import CameraModel
+from gf_orb_slam_tpu_torch.geometry.camera import EUROC_CAM, CameraModel
 from gf_orb_slam_tpu_torch.io_utils import evaluation, synthetic
 from gf_orb_slam_tpu_torch.pipeline.system import FrameLog, SlamConfig, SlamSystem, resolve_device
+from gf_orb_slam_tpu_torch.retrieval import vocabulary as voc_mod
 
 BENCH_CAMERA = CameraModel(fx=458.0, fy=458.0, cx=376.0, cy=240.0, width=752, height=480, fps=20.0)
 
 
 def bench_config(**overrides) -> SlamConfig:
     """The bench's shipped configuration (bench.py: 800 features, GF subset
-    mode at budget 100, keyframe cadence 10, GF after 10 frames) with place
-    recognition off."""
-    kw = dict(n_features=800, max_frames_between_kf=10, use_gf=True, gf_budget=100, gf_warmup_frames=10,
-              enable_loop_closing=False, enable_relocalization=False)
+    mode at budget 100, keyframe cadence 10, GF after 10 frames, place
+    recognition on)."""
+    kw = dict(n_features=800, max_frames_between_kf=10, use_gf=True, gf_budget=100, gf_warmup_frames=10)
     kw.update(overrides)
     return SlamConfig(**kw)
 
 
-def render_sequence(cam: CameraModel, n_frames: int, scene_seed: int = 0, device=None):
+def room_config(**overrides) -> SlamConfig:
+    """The reference CLI's room circuit (`--scene room`: keyframe cadence 6)
+    at GF budget 100."""
+    kw = dict(max_frames_between_kf=6, use_gf=True, gf_budget=100)
+    kw.update(overrides)
+    return SlamConfig(**kw)
+
+
+def render_sequence(cam: CameraModel, n_frames: int, scene_seed: int = 0, device=None, scene: str = "planes"):
     """(timestamps (F,), ground-truth T_cw poses (F, 7), frames (F, H, W)
     float32 rounded to uint8 values, on `device`: the first CUDA card unless
-    given)."""
-    scene = synthetic.make_scene(seed=scene_seed, device=resolve_device(device))
-    ts, poses_gt = synthetic.trajectory(n_frames, fps=cam.fps)
+    given). The room circuit makes a full revolution in ~270 frames and
+    overlaps its start by up to 10%."""
+    device = resolve_device(device)
+    if scene == "room":
+        world = synthetic.make_room_scene(seed=scene_seed, device=device)
+        ts, poses_gt = synthetic.circuit_trajectory(n_frames, fps=cam.fps, radius=4.0,
+                                                    revs=min(1.1, n_frames / 270.0))
+        render = synthetic.render_general
+    else:
+        world = synthetic.make_scene(seed=scene_seed, device=device)
+        ts, poses_gt = synthetic.trajectory(n_frames, fps=cam.fps)
+        render = synthetic.render
     frames = torch.stack([
-        torch.clamp(torch.round(synthetic.render(scene, cam, torch.from_numpy(poses_gt[i]))), 0, 255)
+        torch.clamp(torch.round(render(world, cam, torch.from_numpy(poses_gt[i]))), 0, 255)
         for i in range(n_frames)
     ])
     return ts, poses_gt, frames
@@ -68,12 +88,15 @@ def run_sequence(
     device=None,
     seed: int = 0,
     on_frame: Callable[[int, FrameLog], None] | None = None,
+    vocabulary: voc_mod.Vocabulary | None = None,
 ) -> tuple[SlamSystem, dict]:
-    """Process every frame on `device` (the first CUDA card unless given);
-    returns the system and the result summary (frames, tracked, keyframes,
-    map points, timing, ATE against the ground truth when more than 10
-    frames were tracked)."""
+    """Process every frame on `device` (the first CUDA card unless given),
+    with `vocabulary` preset if given; returns the system and the result
+    summary (frames, tracked, keyframes, map points, loops closed, timing,
+    ATE against the ground truth when more than 10 frames were tracked)."""
     system = SlamSystem(cam, cfg, device=device, seed=seed)
+    if vocabulary is not None:
+        system.set_vocabulary(vocabulary)
     for i in range(frames.shape[0]):
         log = system.process(frames[i], float(ts[i]))
         if on_frame is not None:
@@ -114,7 +137,11 @@ def write_outputs(system: SlamSystem, result: dict, out: str) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--synthetic", type=int, required=True, help="run N frames of the synthetic planes scene")
+    ap.add_argument("--synthetic", type=int, required=True, help="run N frames of a synthetic scene")
+    ap.add_argument("--scene", choices=["planes", "room"], default="planes",
+                    help="the fronto-parallel plane sweep, or the 4-wall room circuit (radtan-distorted "
+                         "EuRoC camera, oblique walls, a loop to close)")
+    ap.add_argument("--vocabulary", help="pretrained BoW vocabulary (.npz); default: the packaged 1M-word tree")
     ap.add_argument("--gf-budget", type=int, default=0, help="good-feature budget (0 = GF off)")
     ap.add_argument("--n-features", type=int, default=0, help="override the ORB feature count")
     ap.add_argument("--out", default="results/port", help="output prefix")
@@ -123,21 +150,28 @@ def main(argv=None) -> int:
     ap.add_argument("--scene-seed", type=int, default=0, help="synthetic scene texture seed")
     args = ap.parse_args(argv)
 
-    cam = BENCH_CAMERA
-    cfg = SlamConfig(enable_loop_closing=False, enable_relocalization=False)
+    if args.scene == "room":
+        cam, cfg = EUROC_CAM, SlamConfig(max_frames_between_kf=6)
+    else:
+        cam, cfg = BENCH_CAMERA, SlamConfig()
     if args.n_features:
         cfg.n_features = args.n_features
     if args.gf_budget > 0:
         cfg.use_gf = True
         cfg.gf_budget = args.gf_budget
     device = resolve_device(args.device)
-    ts, poses_gt, frames = render_sequence(cam, args.synthetic, args.scene_seed, device)
+    voc = (voc_mod.load_vocabulary(args.vocabulary, device) if args.vocabulary
+           else voc_mod.load_default_vocabulary(device))
+    if voc is not None:
+        print(f"vocabulary: {voc.n_words} words", file=sys.stderr)
+    ts, poses_gt, frames = render_sequence(cam, args.synthetic, args.scene_seed, device, scene=args.scene)
 
     def progress(i, log):
         if (i + 1) % 50 == 0:
             print(f"[{i + 1}] {log.state} inliers={log.n_inliers}", file=sys.stderr)
 
-    system, result = run_sequence(cam, cfg, ts, poses_gt, frames, device, args.seed, on_frame=progress)
+    system, result = run_sequence(cam, cfg, ts, poses_gt, frames, device, args.seed, on_frame=progress,
+                                  vocabulary=voc)
     write_outputs(system, result, args.out)
     print(json.dumps(result, indent=2, default=float))
     return 0

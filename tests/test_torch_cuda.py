@@ -3,7 +3,8 @@ against their plain version (path shapes, tile boundaries, extreme
 descriptors, `out=`, replay in a CUDA graph), the entry points' default
 device, the tracking step on the card against the
 reference's recorded outputs, and the host synchronisations of the tracking
-stages and of the keyframe insertion. They skip where there is no GPU.
+stages, of the keyframe insertion, of the BoW registration and of the
+relocalization. They skip where there is no GPU.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only the port's dependencies:
@@ -29,7 +30,10 @@ from gf_orb_slam_tpu_torch.pipeline import local_mapping
 from gf_orb_slam_tpu_torch.pipeline import track_view as tv
 from gf_orb_slam_tpu_torch.pipeline import tracking
 
-PATH_SHAPES = [(4096, 800), (800, 800), (1600, 800), (1600, 1600), (2048, 1600)]
+# Tracking (4096×800, 800×800, 1600×800), bootstrap and triangulation
+# (1600×1600), fusion (2048×1600), relocalization (800×1600) and the loop's
+# SearchAndFuse (4800×1600).
+PATH_SHAPES = [(4096, 800), (800, 800), (1600, 800), (1600, 1600), (2048, 1600), (800, 1600), (4800, 1600)]
 FIXTURE = os.path.join(os.path.dirname(__file__), "..", "gf_orb_slam_tpu_torch", "data", "track_fixture.npz")
 
 
@@ -152,7 +156,7 @@ def load_fixture(dev):
     with np.load(FIXTURE) as zf:
         z = {k: zf[k] for k in zf.files}
     meta = json.loads(str(z["meta"]))
-    m = snapshot.load_map(FIXTURE, dev)
+    m, _, _ = snapshot.load_map(FIXTURE, dev)
     view = tv.compute_track_view(m, int(z["center_kf"]), view_size=meta["view_size"])
     state = [snapshot.to_tensor(z[k], dev) for k in ("last_pose", "last_obs", "last_uv", "velocity")]
     return z, meta, m, view, state
@@ -238,3 +242,65 @@ def test_insert_keyframe_fused_never_synchronises(cuda):
         torch.cuda.set_sync_debug_mode("default")
     assert hamming.LAUNCHES - before == 8  # 3 triangulation + 5 fusion matches
     assert int(again.kf_id) == int(first.kf_id) == 14
+
+
+@pytest.mark.cuda
+def test_register_and_detect_never_synchronises(cuda):
+    """Quantizing a keyframe with the 1M-word vocabulary, registering its BoW
+    row, the covisibility matrix and the loop-candidate ranking make no host
+    sync."""
+    from gf_orb_slam_tpu_torch.retrieval import keyframe_db as kdb
+    from gf_orb_slam_tpu_torch.retrieval import vocabulary as voc_mod
+
+    _, _, m, _, _ = load_fixture(cuda)
+    voc = voc_mod.load_default_vocabulary(cuda)
+    db = kdb.empty_db(m.kf_capacity, m.kp_capacity, voc.n_words, device=cuda)
+    kfs = torch.nonzero(m.kf_valid).flatten().tolist()
+    for k in kfs[:-1]:
+        db = kdb.add_keyframe(db, voc, k, m.kf_kp_desc[k], m.kf_kp_valid[k])
+    q = torch.full((), kfs[-1], dtype=torch.int32, device=cuda)
+    excl = torch.full((), -1, dtype=torch.int32, device=cuda)
+    kdb.register_and_detect(db, voc, m, q, excl)  # caches device constants
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        db2, covis, _, _, cand, ok = kdb.register_and_detect(db, voc, m, q, excl)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(db2.valid[kfs[-1]]) and cand.shape == (6,) and covis.shape == (m.kf_capacity,) * 2
+
+
+@pytest.mark.cuda
+def test_relocalize_fused_never_synchronises(cuda):
+    """A lost frame's relocalization (BoW candidates, 4 × BoW-gated matching
+    and EPnP RANSAC, local-map tracking) makes no host sync: the system's one
+    read per lost frame comes after it."""
+    from gf_orb_slam_tpu_torch.mapping import map_state as ms
+    from gf_orb_slam_tpu_torch.retrieval import keyframe_db as kdb
+    from gf_orb_slam_tpu_torch.retrieval import vocabulary as voc_mod
+
+    z, meta, m, _, _ = load_fixture(cuda)
+    cam = CameraModel(**meta["camera"])
+    voc = voc_mod.load_default_vocabulary(cuda)
+    db = kdb.empty_db(m.kf_capacity, m.kp_capacity, voc.n_words, device=cuda)
+    for k in torch.nonzero(m.kf_valid).flatten().tolist():
+        db = kdb.add_keyframe(db, voc, k, m.kf_kp_desc[k], m.kf_kp_valid[k])
+    frame = make_frame(snapshot.to_tensor(z["frames"][0], cuda).float(), cam, OrbConfig(**meta["orb_config"]))
+    gen = torch.Generator(device=cuda)
+
+    def reloc():
+        words, _ = voc_mod.quantize(voc, frame.desc, frame.valid)
+        cand, ok = kdb.detect_reloc_candidates(db, ms.covisibility(m), voc_mod.bow_vector(voc, words), 4)
+        return tracking.relocalize_fused(cam, m, db.words, frame, words, cand, ok, gen)
+
+    reloc()
+    torch.cuda.synchronize()
+    before = dict(hamming.LAUNCHES_BY_SHAPE)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res, _ = reloc()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert hamming.LAUNCHES_BY_SHAPE[(800, 1600)] - before.get((800, 1600), 0) == 4
+    assert bool(res.ok)
+    assert np.abs(res.pose.cpu().numpy() - z["ref_pose"][0]).max() <= 5e-3

@@ -44,7 +44,7 @@ def fx():
 
 def load_maps():
     jm, _, _ = jsnap.load_map(FIXTURE)
-    return snapshot.load_map(FIXTURE, CPU), jm
+    return snapshot.load_map(FIXTURE, CPU)[0], jm
 
 
 def t(a):

@@ -23,7 +23,7 @@ ATOL = 1e-5
 @pytest.fixture(scope="module")
 def maps():
     jm, _, _ = jsnap.load_map(FIXTURE)
-    return snapshot.load_map(FIXTURE, CPU), jm
+    return snapshot.load_map(FIXTURE, CPU)[0], jm
 
 
 def t(a):

@@ -1,13 +1,17 @@
-"""The port's system layer against the JAX reference: the synthetic scene
-and renderer, the copied host-side evaluation and timing code, the keyframe
-decision, the refusals of what is not ported, and the first 20 frames of the
-bench sequence at full size through `SlamSystem.process` with the
-reference's recorded initializer samples injected.
+"""The port's system layer against the JAX reference: the synthetic scenes
+and renderers (planes and room), the copied host-side evaluation and timing
+code, the keyframe decision, place recognition at the system level (the
+reference's default flags, a preset vocabulary, resuming from a reference
+snapshot), and the first 20 frames of the bench sequence at full size
+through `SlamSystem.process` with the reference's recorded initializer
+samples injected.
 
 The 20-frame run is held to the reference's recorded run (system fixture,
 tools/make_torch_system_fixture.py): the same first WORKING frame (4), the
 same insertion frames (4, 5, 15), and every pose within 2e-3 rad and 5e-3
-map units of the reference's."""
+map units of the reference's. Renders agree within one grey level on
+≥ 99.9% of the pixels; the room's textures and walls exactly, its circuit
+poses to 2e-6 (four float32 ulps of the circuit's 4 m radius)."""
 
 import json
 import os
@@ -18,18 +22,26 @@ import numpy as np
 import pytest
 import torch
 
+from gf_orb_slam_tpu.geometry import camera as jcamera
 from gf_orb_slam_tpu.geometry.camera import CameraModel as JCam
 from gf_orb_slam_tpu.io_utils import evaluation as jeval
+from gf_orb_slam_tpu.io_utils import snapshot as jsnap
 from gf_orb_slam_tpu.io_utils import synthetic as jsyn
 from gf_orb_slam_tpu.io_utils import timing as jtiming
 from gf_orb_slam_tpu.pipeline import tracking as jtrk
+from gf_orb_slam_tpu.retrieval import keyframe_db as jkdb
+from gf_orb_slam_tpu.retrieval import vocabulary as jvoc
 from gf_orb_slam_tpu_torch import run_slam
-from gf_orb_slam_tpu_torch.io_utils import evaluation, synthetic, timing
+from gf_orb_slam_tpu_torch.geometry import camera
+from gf_orb_slam_tpu_torch.io_utils import evaluation, snapshot, synthetic, timing
 from gf_orb_slam_tpu_torch.pipeline import system, tracking
+from gf_orb_slam_tpu_torch.retrieval import keyframe_db as kdb
+from gf_orb_slam_tpu_torch.retrieval import vocabulary as voc_mod
 from gf_orb_slam_tpu_torch.solvers import initializer
 
 SYSTEM_FIXTURE = os.path.join(os.path.dirname(__file__), "..", "gf_orb_slam_tpu_torch", "data",
                               "system_fixture.npz")
+TRACK_FIXTURE = os.path.join(os.path.dirname(__file__), "..", "gf_orb_slam_tpu_torch", "data", "track_fixture.npz")
 CAM = run_slam.BENCH_CAMERA
 N_FRAMES = 20
 
@@ -74,6 +86,45 @@ def test_render_matches_reference():
         want = np.clip(np.round(np.asarray(jsyn.render(jscene, JCam(**CAM._asdict()), jnp.asarray(poses[i])))), 0, 255)
         diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
         assert (diff == 0).mean() >= 0.999 and diff.max() <= 1, (i, (diff == 0).mean(), diff.max())
+
+
+def test_euroc_camera_copy_equal():
+    assert camera.EUROC_CAM._asdict() == jcamera.EUROC_CAM._asdict()
+
+
+@pytest.mark.parametrize("seed,tex_size", [(0, 1024), (3, 256)])
+def test_make_room_scene_exact(seed, tex_size):
+    got = synthetic.make_room_scene(seed=seed, tex_size=tex_size)
+    want = jsyn.make_room_scene(seed=seed, tex_size=tex_size)
+    for k in ("textures", "plane_q", "plane_c", "extents"):
+        np.testing.assert_array_equal(getattr(got, k).numpy(), np.asarray(getattr(want, k)), err_msg=k)
+    assert got.tex_size == want.tex_size
+
+
+@pytest.mark.parametrize("n_frames", [420, 300])
+def test_circuit_trajectory_matches_reference(n_frames):
+    kw = dict(fps=20.0, radius=4.0, revs=min(1.1, n_frames / 270.0))
+    ts, poses = synthetic.circuit_trajectory(n_frames, **kw)
+    jts, jposes = jsyn.circuit_trajectory(n_frames, **kw)
+    np.testing.assert_array_equal(ts, jts)
+    # 2e-6: four float32 ulps of the 4 m circuit radius (sin/cos of the port
+    # and of XLA round differently; small components inherit the radius's).
+    np.testing.assert_allclose(poses, jposes, atol=2e-6, rtol=1e-6)
+
+
+def test_render_general_with_distortion_matches_reference():
+    """The distorted EuRoC camera: the fixed-point undistortion of each
+    pixel's ray in float32 rounds a few pixels the other way."""
+    scene, jscene = synthetic.make_room_scene(seed=0), jsyn.make_room_scene(seed=0)
+    _, poses = jsyn.circuit_trajectory(420, fps=20.0, radius=4.0, revs=1.1)
+    jcam_ = JCam(**camera.EUROC_CAM._asdict())
+    for i in (0, 150, 377):
+        got = np.clip(np.round(synthetic.render_general(scene, camera.EUROC_CAM, torch.from_numpy(poses[i])).numpy()),
+                      0, 255)
+        want = np.clip(np.round(np.asarray(jsyn.render_general(jscene, jcam_, jnp.asarray(poses[i])))), 0, 255)
+        diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+        assert (diff <= 1).mean() >= 0.999, (i, (diff <= 1).mean(), diff.max())
+        assert got.std() > 20  # textured walls, not background
 
 
 # ---------------------------------------------------------------------------
@@ -137,22 +188,68 @@ def test_need_new_keyframe_grid():
                     assert tracking.need_new_keyframe(*args) == jtrk.need_new_keyframe(*args, min_frames=0), args
 
 
-@pytest.mark.parametrize("field", ["enable_loop_closing", "enable_relocalization"])
-def test_system_refuses_place_recognition(field):
-    cfg = run_slam.bench_config(**{field: True})
-    with pytest.raises(NotImplementedError, match="ROADMAP slice 3"):
-        system.SlamSystem(CAM, cfg)
+def test_system_runs_with_the_reference_default_flags_on_cpu():
+    cfg = system.SlamConfig()
+    assert cfg.enable_loop_closing and cfg.enable_relocalization  # the reference's defaults
+    assert not hasattr(cfg, "pipelined")
+    ts, poses_gt, frames = run_slam.render_sequence(CAM, 6, device="cpu")
+    s = system.SlamSystem(CAM, cfg, device="cpu")
+    states = [s.process(frames[i], float(ts[i])).state for i in range(6)]
+    assert "WORKING" in states and s.n_kf == 2
+    assert s.voc is None and s.bow_db is None  # trained once vocab_train_kfs keyframes exist
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        system.SlamSystem(CAM)  # the reference's defaults turn both on
+        system.SlamSystem(CAM, system.SlamConfig(loop_probe_floor=5), device="cpu")
 
 
-def test_system_refuses_preset_vocabulary_and_saved_maps():
+@pytest.fixture(scope="module")
+def voc1m():
+    return voc_mod.load_default_vocabulary(torch.device("cpu"))
+
+
+def test_set_vocabulary_registers_the_existing_keyframes(run20, voc1m):
+    """Unlike the reference's (which starts an empty database and forgets
+    the map's keyframes, ROADMAP C), the port's set_vocabulary registers
+    every valid keyframe; reset() keeps the preset vocabulary."""
+    s, _, _ = run20
+    assert s.voc is not None and s.voc.n_words == 1000  # trained on the fly (k=10, L=3) at the 4th keyframe
+    s.set_vocabulary(voc1m)
+    assert s.voc.n_words == 1_000_000
+    kf = s.map.kf_valid
+    assert torch.equal(s.bow_db.valid, kf) and int(kf.sum()) >= 3
+    k = int(torch.nonzero(kf).flatten()[-1])
+    want = kdb.add_keyframe(kdb.empty_db(s.map.kf_capacity, s.map.kp_capacity, voc1m.n_words, device="cpu"),
+                            voc1m, k, s.map.kf_kp_desc[k], s.map.kf_kp_valid[k])
+    assert torch.equal(s.bow_db.bow_ids[k], want.bow_ids[k]) and torch.equal(s.bow_db.mid_nodes[k], want.mid_nodes[k])
+    fresh = system.SlamSystem(CAM, run_slam.bench_config(), device="cpu")
+    fresh.set_vocabulary(voc1m)
+    fresh.reset()
+    assert fresh.voc.n_words == 1_000_000 and fresh.bow_db is not None and not fresh.bow_db.valid.any()
+
+
+def test_load_map_state_of_a_reference_snapshot_relocalizes(tmp_path, voc1m):
+    """A reference `save_map` snapshot (the track fixture's map, the 1M
+    vocabulary and the reference's BoW database) resumes LOST and the first
+    frame relocalizes to WORKING, near the pose the reference tracked."""
+    jm, _, _ = jsnap.load_map(TRACK_FIXTURE)
+    jv = jvoc.load_binary(jvoc.default_vocabulary_path())
+    jdb = jkdb.empty_db(jm.kf_capacity, jm.kp_capacity, jv.n_words)
+    for k in np.flatnonzero(np.asarray(jm.kf_valid)):
+        jdb = jkdb.add_keyframe(jdb, jv, jnp.asarray(int(k)), jm.kf_kp_desc[int(k)], jm.kf_kp_valid[int(k)])
+    path = str(tmp_path / "snap.npz")
+    jsnap.save_map(path, jm, jv, jdb)
+    m, voc, db = snapshot.load_map(path, "cpu")
+    assert voc.n_words == 1_000_000 and torch.equal(db.valid, m.kf_valid)
+    np.testing.assert_array_equal(db.bow_ids.numpy(), np.asarray(jdb.bow_ids))
+    with np.load(TRACK_FIXTURE) as z:
+        img, ref_pose = z["frames"][0].astype(np.float32), z["ref_pose"][0]
     s = system.SlamSystem(CAM, run_slam.bench_config(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP slice 3"):
-        s.set_vocabulary(object())
-    with pytest.raises(NotImplementedError, match="ROADMAP slice 3"):
-        s.load_map_state(object())
-    assert not hasattr(system.SlamConfig(), "pipelined")
+    s.load_map_state(m, voc, db)
+    assert s.state == system.State.LOST and s.n_kf == int(np.asarray(jm.kf_valid).sum())
+    log = s.process(img, 0.0)
+    assert log.state == "WORKING" and s.last_reloc_frame == 0 and log.n_inliers >= 25
+    assert rot_err(log.pose_cw[:4], ref_pose[:4]) < 5e-3 and np.linalg.norm(log.pose_cw[4:] - ref_pose[4:]) < 5e-3
+    with pytest.raises(ValueError, match="capacity"):
+        system.SlamSystem(CAM, run_slam.bench_config(n_features=400), device="cpu").load_map_state(m)
 
 
 @pytest.fixture

@@ -39,7 +39,7 @@ def fx():
     with np.load(FIXTURE) as z:
         arrays = {k: z[k] for k in z.files}
     meta = json.loads(str(arrays["meta"]))
-    m = snapshot.load_map(FIXTURE, CPU)
+    m = snapshot.load_map(FIXTURE, CPU)[0]
     view = tv.compute_track_view(m, int(arrays["center_kf"]), view_size=meta["view_size"])
     return arrays, meta, m, view
 

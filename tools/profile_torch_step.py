@@ -69,7 +69,7 @@ def main() -> None:
     cam = CameraModel(**meta["camera"])
     cfg = OrbConfig(**meta["orb_config"])
     gf = meta["gf"]
-    m = snapshot.load_map(fixture, dev)
+    m, _, _ = snapshot.load_map(fixture, dev)
     view = tv.compute_track_view(m, int(z["center_kf"]), view_size=meta["view_size"])
     frames = snapshot.to_tensor(z["frames"], dev).to(torch.float32)
     state = [snapshot.to_tensor(z[k], dev) for k in ("last_pose", "last_obs", "last_uv", "velocity")]
