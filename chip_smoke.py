@@ -31,7 +31,7 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              the plain version (no yardstick), the bound, and the wrapper's
              host µs per call; and the one-block floor of both kernels. The
              wrapper counts its launches by shape; the run fails if a path
-             phase (4-7) launched it at a shape not checked here;
+             phase (4-7, 9) launched it at a shape not checked here;
 4. main    — the per-frame tracking step (`track_frame_fused`, GF subset mode,
              budget 100, batch 10) chained over the fixture's frames on the
              reference's map, each frame checked against the reference's
@@ -66,18 +66,35 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              its BoW registration, the lost frame's relocalization, a loop
              verification, and a correction with its pose graph and its
              SearchAndFuse timed apart;
-9. profile — the profiler's device duration of both kernels at 4096×800, a
-             cross-check of phase 3's graph times, and the host µs of one
-             small eager op before and after the profiler ran. It comes
-             last, so that the profiler cannot slow the host's launches in
-             the timed phases.
+9. gf_modes — phase 5's run (bench.py's configuration, the 1M vocabulary,
+             seed 0) in every other GF selection mode: active and hybrid
+             over the 240 frames, lazier, auto, random and longlive over the
+             first 120 (the random modes' noise drawn on the card), each
+             held against the reference's recorded run of the same mode
+             (first WORKING frame ≤ +2, tracked ≥ 98%, keyframes ±25%, ATE
+             ≤ 2× the largest of the reference's run and its two perturbed
+             runs, poses finite, 2 host syncs per tracked frame and 3 per
+             insertion frame); per mode the tracked-frame median and p90,
+             the insertion median, peak device memory, and the last tracked
+             frame's `track_local_map` re-run alone with GF on and off
+             (SELECTION_REPS turns each, medians), so that the selection's
+             own cost is the difference;
+10. profile — the profiler's device duration of both kernels at 4096×800, a
+             cross-check of phase 3's graph times, the kernel launches of
+             the last local-map call of each mode's run (subset: phase 5's),
+             of its tracking step and of its selection (GF on less off), and
+             the host µs of one small eager op before and after the
+             profiler ran. It comes last, so that the profiler
+             cannot slow the host's launches in the timed phases.
 
-Each path phase (4-7) sets the kernel's launch counts to 0 just before it
+Each path phase (4-7, 9) sets the kernel's launch counts to 0 just before it
 drives the path and reads them just after. Then the kernel's launches by
-shape, the kernel table line and, last, {"ok": true, "device": {...}}. The
-fixtures (gf_orb_slam_tpu_torch/data/track_fixture.npz and
-place_fixture.npz) are written from the JAX reference by
-tools/make_torch_fixture.py and tools/make_torch_place_fixture.py.
+shape, the seconds each phase took, the kernel table line and, last,
+{"ok": true, "device": {...}}. The
+fixtures (gf_orb_slam_tpu_torch/data/track_fixture.npz, place_fixture.npz
+and gf_modes_fixture.npz) are written from the JAX reference by
+tools/make_torch_fixture.py, tools/make_torch_place_fixture.py and
+tools/make_torch_gf_modes_fixture.py.
 """
 
 from __future__ import annotations
@@ -96,6 +113,9 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(REPO, "gf_orb_slam_tpu_torch", "data", "track_fixture.npz")
 PLACE_FIXTURE = os.path.join(REPO, "gf_orb_slam_tpu_torch", "data", "place_fixture.npz")
+GF_MODES_FIXTURE = os.path.join(REPO, "gf_orb_slam_tpu_torch", "data", "gf_modes_fixture.npz")
+# Phase 9's modes, in the order they run (the fixture sets each one's frames).
+GF_MODES = ("active", "hybrid", "lazier", "auto", "random", "longlive")
 # Tracking (4096×800, 800×800, 1600×800), bootstrap and triangulation
 # (1600×1600), fusion (2048×1600), relocalization (800×1600), SearchAndFuse (4800×1600).
 TIMED_SHAPES = [(4096, 800), (800, 800), (1600, 800), (1600, 1600), (2048, 1600), (800, 1600), (4800, 1600)]
@@ -118,6 +138,7 @@ TRACKED_SHARE = 0.98       # tracked frames ≥ the reference's less 2%
 KF_SHARE = 0.25            # keyframes inserted within ±25% of the reference's
 ATE_FACTOR = 2.0           # ATE ≤ 2× the reference's
 MIN_INSERT_LAUNCHES = 4    # Hamming launches inside every insertion
+SELECTION_REPS = 9         # phase 9: local-map tracking re-runs, GF on and off in turns
 
 
 def emit(obj) -> None:
@@ -328,10 +349,46 @@ def kernel_phase(dev) -> dict:
             "one_block_floor": floor}
 
 
-def profile_phase(dev) -> dict:
-    """Phase 9: the profiler's device µs of both Hamming kernels at the
-    first timed shape, and the host µs of a small eager op before and after
-    the profiler ran."""
+def launches_of(fn) -> int:
+    """Kernel launches of one call of fn, counted by the profiler (its
+    cudaLaunchKernel and cuLaunchKernel calls)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx"))
+
+
+def gf_launches(gf_runs: dict) -> dict:
+    """Kernel launches per GF mode of the run's last local-map call (GF on),
+    of its tracking step and of the selection (GF on less GF off). Subset's
+    step and the GF-off call are counted once: the rest of the step and
+    GF-off local-map tracking are the same code in every mode, so a mode's
+    step is subset's with its own local-map call."""
+    base = gf_runs["subset"]
+    step_rest = launches_of(lambda: base["originals"]["step"](*base["step"][0], **base["step"][1]))
+    a, kw = base["local_map"]
+    off = launches_of(lambda: base["originals"]["local_map"](*a, **(kw | {"use_gf": False})))
+    launches = {"local_map_gf_off": off}
+    for mode, run in gf_runs.items():
+        a, kw = run["local_map"]
+        launches[mode] = {"local_map_gf_on": launches_of(lambda: run["originals"]["local_map"](*a, **kw))}
+    step_rest -= launches["subset"]["local_map_gf_on"]
+    for mode in gf_runs:
+        on = launches[mode]["local_map_gf_on"]
+        launches[mode] |= {"step": step_rest + on, "selection": on - off}
+    return launches
+
+
+def profile_phase(dev, gf_runs: dict) -> dict:
+    """Phase 10: the profiler's device µs of both Hamming kernels at the
+    first timed shape; the launches of each GF mode (gf_launches: subset
+    from phase 5, the others from phase 9); and the host µs of a small eager
+    op before and after the profiler ran."""
     import numpy as np
     import torch
 
@@ -347,8 +404,24 @@ def profile_phase(dev) -> dict:
     before = host_us(lambda: x.add_(1))
     prof = profiler_us({"hamming_mma_kernel": lambda o: hamming.hamming_matrix_cuda(q, t, out=o),
                         "hamming_simt_kernel": lambda o: hamming.hamming_matrix_simt_cuda(q, t, out=o)}, ring)
-    return {"phase": "profile", "shape": [nq, nt], "profiler": prof,
+    del ring
+    launches = gf_launches(gf_runs)
+    return {"phase": "profile", "shape": [nq, nt], "profiler": prof, "gf_mode_kernel_launches": launches,
             "eager_op_host_us_before_profiler": before, "eager_op_host_us_after_profiler": host_us(lambda: x.add_(1))}
+
+
+def own(args: tuple) -> tuple:
+    """(a, kw) of a recorded call with each tensor that is a view of a
+    larger one copied, so that keeping the call keeps only its own
+    arguments on the device (a frame, not the whole sequence it was cut
+    from)."""
+    import torch
+
+    def c(x):
+        return x.clone() if isinstance(x, torch.Tensor) and x._base is not None else x
+
+    a, kw = args
+    return tuple(c(x) for x in a), {k: c(v) for k, v in kw.items()}
 
 
 def reset_launch_counts() -> None:
@@ -409,6 +482,12 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
+    seconds, last = {}, [time.perf_counter()]
+
+    def lap(name):
+        """Seconds since the previous lap, by phase (the script's time limit)."""
+        now = time.perf_counter()
+        seconds[name], last[0] = now - last[0], now
 
     # --- 1. device ---
     smi = nvidia_smi_line()
@@ -416,6 +495,7 @@ def main() -> int:
     emit({"phase": "device", "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": kind, "count": torch.cuda.device_count(), "nvidia_smi": smi,
           "python": sys.version.split()[0]})
+    lap("device")
 
     # --- 2. build ---
     t0 = time.perf_counter()
@@ -423,11 +503,13 @@ def main() -> int:
     emit({"phase": "build", "library": os.path.relpath(_build.library_path(), REPO),
           "nvcc_seconds": _build.build_seconds, "seconds": time.perf_counter() - t0,
           "ptxas": _build.ptxas_kernels(), "sass_tensor_core_opcodes": sass_mma_opcodes(_build.library_path())})
+    lap("build")
 
     # --- 3. kernels against the plain version, and their device times ---
     kernel_rec = kernel_phase(dev)
     kernel_rec.update(device=kind, nvidia_smi=smi)
     emit(kernel_rec)
+    lap("kernel")
 
     # --- 4. main path ---
     with np.load(FIXTURE) as zf:
@@ -515,6 +597,7 @@ def main() -> int:
           "median_ms_wall": statistics.median(ms_wall),
           "median_ms_cuda_events": statistics.median(rec["ms_cuda_events"] for rec in per_frame),
           "fps": F / (sum(ms_wall) / 1e3), "device": kind, "nvidia_smi": smi})
+    lap("main")
 
     # --- 5-7. the whole SLAM loop from the first frame, with place recognition ---
     from gf_orb_slam_tpu_torch.retrieval import vocabulary as voc_mod
@@ -535,13 +618,28 @@ def main() -> int:
         rec.update(device=kind, nvidia_smi=smi)
         emit(rec)
         path_recs[name] = rec
+        lap(name)
+    # Phase 10 also counts the launches of subset mode's last step, for the modes to be read against.
+    gf_runs = {"subset": {k: own(runs["system"]["last_args"][k]) for k in TRACKING_CALLS}
+               | {"originals": {k: runs["system"]["originals"][k] for k in TRACKING_CALLS}}}
 
     # --- 8. where a place-recognition frame's time goes ---
     emit(breakdown_phase(runs) | {"device": kind, "nvidia_smi": smi})
     del runs
+    lap("breakdown")
 
-    # --- 9. the profiler's cross-check, after every timed phase ---
-    emit(profile_phase(dev) | {"device": kind, "nvidia_smi": smi})
+    # --- 9. the other GF selection modes through the same loop ---
+    for mode, rec, gf_runs[mode] in run_gf_modes_phase(dev, voc):
+        rec.update(device=kind, nvidia_smi=smi)
+        emit(rec)
+        path_recs[f"gf_{mode}"] = rec
+        lap(f"gf_{mode}")
+
+    # --- 10. the profiler's cross-check, after every timed phase ---
+    emit(profile_phase(dev, gf_runs) | {"device": kind, "nvidia_smi": smi})
+    del gf_runs
+    lap("profile")
+    emit({"phase": "seconds", "by_phase": seconds, "total": sum(seconds.values())})
     # Every shape a path phase launched the kernel at (phase 5's insertion
     # re-run launches the shapes of its run).
     path_shapes = set(main_by_shape)
@@ -581,11 +679,13 @@ def main() -> int:
     return 0
 
 
-def load_place_fixture(run: str):
-    """(meta, arrays) of one reference run recorded in the place fixture."""
+def load_place_fixture(run: str, path: str = PLACE_FIXTURE):
+    """(meta, arrays) of one reference run recorded in a fixture written by
+    tools/make_torch_place_fixture.py (or the GF-modes one, which records its
+    runs the same way)."""
     import numpy as np
 
-    with np.load(PLACE_FIXTURE) as zf:
+    with np.load(path) as zf:
         z = {k[len(run) + 1:]: zf[k] for k in zf.files if k.startswith(run + "_")}
     return json.loads(str(z.pop("meta"))), z
 
@@ -598,7 +698,11 @@ RECORDED = {
     "reloc": ("gf_orb_slam_tpu_torch.pipeline.tracking", "relocalize_fused", False),
     "verify": ("gf_orb_slam_tpu_torch.loop.loop_closing", "verify_candidate", True),
     "correct": ("gf_orb_slam_tpu_torch.loop.loop_closing", "correct_loop", True),
+    "step": ("gf_orb_slam_tpu_torch.pipeline.tracking", "track_frame_fused", False),
+    "local_map": ("gf_orb_slam_tpu_torch.pipeline.tracking", "track_local_map", False),
 }
+# Recorded for phase 9's re-runs and launch counts; phase 8 re-runs the others.
+TRACKING_CALLS = ("step", "local_map")
 
 
 def drive_system(dev, cam, cfg, ts, poses_gt, frames, voc, seed: int) -> dict:
@@ -698,7 +802,7 @@ def breakdown_phase(runs: dict) -> dict:
     rec = {"phase": "breakdown", "reps": 3}
     for name, run in runs.items():
         for fn_name, (a, kw) in run["last_args"].items():
-            if fn_name == "correct":
+            if fn_name == "correct" or fn_name in TRACKING_CALLS:
                 continue
             rec[f"{name}.{fn_name}_ms"] = timed_ms(lambda: run["originals"][fn_name](*a, **kw))
     a, kw = runs["loop"]["last_args"]["correct"]
@@ -922,6 +1026,72 @@ def run_loop_phase(dev, voc):
     if bad:
         raise AssertionError("loop phase outside its gates: " + "; ".join(bad) + f" — {short(rec)}")
     return rec, {k: run[k] for k in ("last_args", "originals")}
+
+
+def run_gf_modes_phase(dev, voc):
+    """Phase 9: for each mode of GF_MODES, SlamSystem.process over the bench
+    sequence on the card in bench.py's configuration with `gf_mode` changed,
+    held against the reference's recorded run of that mode. Yields (mode,
+    record, the last local-map call's arguments). Raises on any gate."""
+    import torch
+
+    from gf_orb_slam_tpu_torch import run_slam
+
+    meta0, _ = load_place_fixture(GF_MODES[0], GF_MODES_FIXTURE)
+    t0 = time.perf_counter()
+    cam, ts, poses_gt, frames = bench_sequence(dev, meta0)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    for mode in GF_MODES:
+        meta, z = load_place_fixture(mode, GF_MODES_FIXTURE)
+        ref, F = meta["summary"], meta["frames"]
+        # The reference's ATE in this mode moves with perturbations as small
+        # as its own float32 round-off (the fixture's spread runs): the port,
+        # one more such perturbation, is held to 2× the largest.
+        ref_ates = [ref["ate_rmse_m"]] + [r["summary"]["ate_rmse_m"] for r in json.loads(str(z["spread"]))]
+        cfg = run_slam.bench_config(gf_mode=mode)
+        for k in ("gf_mode", "gf_budget", "gf_batch", "gf_warmup_frames", "max_frames_between_kf", "n_features"):
+            if getattr(cfg, k) != meta["slam_config"][k]:
+                raise AssertionError(f"gf_modes {mode}: {k}={getattr(cfg, k)} but the reference ran {meta['slam_config'][k]}")
+        run = drive_system(dev, cam, cfg, ts[:F], poses_gt[:F], frames[:F], voc, seed=0)
+        rec = {"phase": "gf_modes", "mode": mode, "entry": "pipeline.system.SlamSystem.process",
+               "render_seconds": render_s, **run_record(run, F)}
+        # The last tracked frame's local-map tracking alone, GF on and off in
+        # turns (the host's noise between calls is as large as a cheap mode's
+        # selection).
+        a, kw = run["last_args"]["local_map"]
+        local_map = run["originals"]["local_map"]
+        on, off = [], []
+        for _ in range(SELECTION_REPS):
+            on.append(timed_ms(lambda: local_map(*a, **kw), reps=1))
+            off.append(timed_ms(lambda: local_map(*a, **(kw | {"use_gf": False})), reps=1))
+        on_ms, off_ms = statistics.median(on), statistics.median(off)
+        rec.update({
+            "local_map_gf_on_ms": on_ms, "local_map_gf_off_ms": off_ms, "selection_ms": on_ms - off_ms,
+            "local_map_gf_on_ms_runs": on, "local_map_gf_off_ms_runs": off,
+            "ref_first_working": ref["first_working"], "ref_tracked": ref["tracked"],
+            "ref_keyframes_inserted": ref["keyframes_inserted"], "ref_ate_rmse_m": ref["ate_rmse_m"],
+            "ref_ate_rmse_m_spread": ref_ates, "ref_loops_closed": ref["loops_closed"],
+        })
+        bad = []
+        if not rec["poses_finite"]:
+            bad.append("a pose is not finite or not a 7-vector")
+        if rec["first_working"] < 0 or rec["first_working"] > ref["first_working"] + WORKING_SLACK:
+            bad.append(f"first WORKING frame {rec['first_working']} (reference {ref['first_working']})")
+        if rec["tracked"] < TRACKED_SHARE * ref["tracked"]:
+            bad.append(f"tracked {rec['tracked']} of {F} (reference {ref['tracked']})")
+        if abs(rec["keyframes_inserted"] - ref["keyframes_inserted"]) > KF_SHARE * ref["keyframes_inserted"]:
+            bad.append(f"{rec['keyframes_inserted']} keyframes inserted (reference {ref['keyframes_inserted']})")
+        if rec["ate_rmse_m"] is None or rec["ate_rmse_m"] > ATE_FACTOR * max(ref_ates):
+            bad.append(f"ATE {rec['ate_rmse_m']} m (the reference's runs {ref_ates} m)")
+        if rec["host_syncs_per_tracked_frame"] != [2] or rec["host_syncs_per_insert_frame"] != [3]:
+            bad.append(f"host syncs {rec['host_syncs_per_tracked_frame']} per tracked frame and "
+                       f"{rec['host_syncs_per_insert_frame']} per insertion frame (expected 2 and 3)")
+        if bad:
+            raise AssertionError(f"gf_modes phase, mode {mode}, outside its gates: " + "; ".join(bad) + f" — {short(rec)}")
+        yield mode, rec, {"local_map": own(run["last_args"]["local_map"]),
+                          "originals": {"local_map": run["originals"]["local_map"]}}
+        del run
 
 
 def short(rec: dict) -> dict:

@@ -148,3 +148,46 @@ def dRq_a_dq(q: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
 def dqbar_by_dq(dtype=torch.float32, device=None) -> torch.Tensor:
     """d(conj(q))/dq — constant diagonal (cached per device; do not modify)."""
     return torch.diag(torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=dtype, device=device))
+
+
+def left_prod_matrix(q: torch.Tensor) -> torch.Tensor:
+    """L(q) with qprod(q, p) = L(q) @ p: the Jacobian d(q⊗p)/dp, (..., 4, 4)."""
+    r, x, y, z = q.unbind(-1)
+    return torch.stack(
+        [
+            torch.stack([r, -x, -y, -z], dim=-1),
+            torch.stack([x, r, -z, y], dim=-1),
+            torch.stack([y, z, r, -x], dim=-1),
+            torch.stack([z, -y, x, r], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def right_prod_matrix(q: torch.Tensor) -> torch.Tensor:
+    """Rm(q) with qprod(p, q) = Rm(q) @ p: the Jacobian d(p⊗q)/dp, (..., 4, 4)."""
+    r, x, y, z = q.unbind(-1)
+    return torch.stack(
+        [
+            torch.stack([r, -x, -y, -z], dim=-1),
+            torch.stack([x, r, z, -y], dim=-1),
+            torch.stack([y, -z, r, x], dim=-1),
+            torch.stack([z, y, -x, r], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def slerp(q0: torch.Tensor, q1: torch.Tensor, t) -> torch.Tensor:
+    """Spherical interpolation, shortest arc; linear where the two are
+    nearly parallel."""
+    d = torch.sum(q0 * q1, dim=-1, keepdim=True)
+    q1 = torch.where(d < 0, -q1, q1)
+    d = torch.abs(d)
+    theta = torch.arccos(torch.clamp(d, -1.0, 1.0))
+    sin_theta = torch.sin(theta)
+    near = sin_theta < _EPS
+    safe = torch.where(near, 1.0, sin_theta)
+    w0 = torch.where(near, 1.0 - t, torch.sin((1.0 - t) * theta) / safe)
+    w1 = torch.where(near, t, torch.sin(t * theta) / safe)
+    return qnormalize(w0 * q0 + w1 * q1)

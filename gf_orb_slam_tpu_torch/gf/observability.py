@@ -1,5 +1,5 @@
-"""Measurement Jacobians wrt the PWLS camera state (port of the part of
-gf_orb_slam_tpu/gf/observability.py on the tracking path).
+"""Measurement Jacobians and information matrices wrt the PWLS camera state
+(port of gf_orb_slam_tpu/gf/observability.py).
 
 Camera state Xv = [r(3), q_wr(4), v(3), w(3)]; landmark y in world;
 hrl = R_rw (y − r); pixel u = fx·x/z + cx, v = fy·y/z + cy.
@@ -62,3 +62,26 @@ def measurement_jacobians(
 def whiten(H: torch.Tensor, sigma2: torch.Tensor) -> torch.Tensor:
     """Octave-leveled noise whitening: Σ = σ²·I per observation → H/σ."""
     return H / torch.sqrt(sigma2)[..., None, None]
+
+
+def info_matrices(H_w: torch.Tensor, visible: torch.Tensor) -> torch.Tensor:
+    """(N, 2, 7) whitened Jacobians → (N, 7, 7) information blocks HᵀH;
+    invisible landmarks give zeros."""
+    blocks = torch.einsum("nri,nrj->nij", H_w, H_w)
+    return torch.where(visible[:, None, None], blocks, 0.0)
+
+
+def hybrid_factors(H: torch.Tensor, F: torch.Tensor, visible: torch.Tensor) -> torch.Tensor:
+    """Two-segment PWLS stacking [H·Sel ; H·Sel·F] over the 13-dim state,
+    (N, 4, 13), Sel embedding the 7 pose columns into 13: block_i =
+    factorᵀ·factor. Invisible landmarks give zeros."""
+    H13d = torch.cat([H, H.new_zeros(H.shape[:-1] + (6,))], dim=-1)  # (N, 2, 13)
+    HF = torch.einsum("nri,ij->nrj", H13d, F)
+    stacked = torch.cat([H13d, HF], dim=1)
+    return torch.where(visible[:, None, None], stacked, 0.0)
+
+
+def hybrid_matrices(H: torch.Tensor, F: torch.Tensor, visible: torch.Tensor) -> torch.Tensor:
+    """13×13 information block per landmark from the hybrid stacking."""
+    stacked = hybrid_factors(H, F, visible)
+    return torch.einsum("nri,nrj->nij", stacked, stacked)

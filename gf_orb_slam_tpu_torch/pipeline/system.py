@@ -81,7 +81,8 @@ class SlamConfig:
     max_points: int = 16384
     use_motion_model: bool = True
     use_gf: bool = False            # Good-Feature selection in local-map tracking
-    gf_mode: str = "subset"
+    gf_mode: str = "subset"         # one of tracking.GF_MODES: "subset" | "hybrid" |
+                                    # "lazier" | "auto" | "active" | "random" | "longlive"
     gf_budget: int = 100
     gf_batch: int = 10              # picks per greedy round
     gf_warmup_frames: int = 40      # GF off for this many frames after init
@@ -105,6 +106,9 @@ class SlamConfig:
     view_size: int = 4096           # local-map tracking view capacity
     max_lost_frames: int = 100
 
+    def __post_init__(self):
+        tracking.check_gf_mode(self.gf_mode)
+
 
 @dataclass
 class FrameLog:
@@ -118,6 +122,7 @@ class FrameLog:
 class SlamSystem:
     def __init__(self, cam: CameraModel, cfg: SlamConfig | None = None, device=None, seed: int = 0):
         cfg = cfg or SlamConfig()
+        tracking.check_gf_mode(cfg.gf_mode)  # a field set after construction
         if cfg.loop_probe_floor > 0:
             raise NotImplementedError("loop_probe_floor > 0: the loop-gate probe is not ported (ROADMAP queue A)")
         self.cam = cam
@@ -130,9 +135,10 @@ class SlamSystem:
         # Initialization extractor with 2x features, whose frames become the
         # first two keyframes; the map's keypoint capacity is sized for it.
         self.init_orb_cfg = self.orb_cfg._replace(n_features=2 * cfg.n_features)
-        # The initializer's, PnP's and Sim3 RANSAC's samples come from this
-        # generator; JAX's threefry stream cannot be reproduced, so runs are
-        # compared statistically (or with injected samples).
+        # The initializer's, PnP's and Sim3 RANSAC's samples and the random
+        # GF modes' noise come from this generator; JAX's threefry stream
+        # cannot be reproduced, so runs are compared statistically (or with
+        # injected samples).
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.state = State.NO_IMAGES_YET
@@ -329,6 +335,9 @@ class SlamSystem:
         cfg = self.cfg
         dt = max(timestamp - self.last_ts, 1e-6)
         use_gf = cfg.use_gf and self.frames_since_init > cfg.gf_warmup_frames
+        # Only the lazier, auto and random modes draw (on the device).
+        noise = tracking.sample_gf_noise(cfg.gf_mode, self.track_view.capacity, cfg.gf_budget, cfg.gf_batch,
+                                         self.generator) if use_gf else None
 
         self.time_log.begin("local_map_track")
         res = tracking.track_frame_fused(
@@ -337,7 +346,7 @@ class SlamSystem:
             self.velocity if cfg.use_motion_model else se3.identity_pose(device=self.device),
             torch.full((), dt, dtype=torch.float32, device=self.device), self._key,
             scale=cfg.scale, n_levels=cfg.n_levels,
-            gf_budget=cfg.gf_budget, use_gf=use_gf, gf_mode=cfg.gf_mode, gf_batch=cfg.gf_batch,
+            gf_budget=cfg.gf_budget, use_gf=use_gf, gf_mode=cfg.gf_mode, gf_batch=cfg.gf_batch, gf_noise=noise,
         )
         frame_now = frame_mod.FrameData(
             # The step returns undistorted coordinates only; raw ones are

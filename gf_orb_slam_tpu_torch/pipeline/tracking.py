@@ -1,7 +1,7 @@
 """Per-frame tracking (port of gf_orb_slam_tpu/pipeline/tracking.py):
 motion-model tracking, local-map tracking with optional Good-Feature
-selection in "subset" mode, the fused WORKING-state step, and the fused
-relocalization of a LOST frame.
+selection in any of the reference's modes, the fused WORKING-state step, and
+the fused relocalization of a LOST frame.
 
 The reference's `mode="drop"` scatters (index N or P = drop) become writes
 into an N+1 (P+1) buffer whose last slot is cut off; every gather index is
@@ -13,13 +13,15 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from gf_orb_slam_tpu_torch.geometry import pwls, se3
 from gf_orb_slam_tpu_torch.geometry.camera import CameraModel, project
-from gf_orb_slam_tpu_torch.gf import observability, selection
+from gf_orb_slam_tpu_torch.gf import active_matching, observability, selection
 from gf_orb_slam_tpu_torch.mapping import map_state as ms
 from gf_orb_slam_tpu_torch.mapping.frame import FrameData, make_frame
 from gf_orb_slam_tpu_torch.ops import matching
+from gf_orb_slam_tpu_torch.ops.fast import top_k_stable
 from gf_orb_slam_tpu_torch.ops.pyramid import level_consts, predict_octave
 from gf_orb_slam_tpu_torch.pipeline import track_view as tv
 from gf_orb_slam_tpu_torch.pipeline.track_view import TrackView
@@ -28,16 +30,46 @@ from gf_orb_slam_tpu_torch.solvers import pnp, pose_opt
 
 NO_POINT = ms.NO_POINT
 
-# GF modes of the reference that this package does not run yet, with the
-# ROADMAP item that ports each.
-_UNPORTED_GF_MODES = {
-    "hybrid": "ROADMAP A17 (observability.hybrid_factors, pwls.f_matrix)",
-    "lazier": "ROADMAP A17 (selection.lazier_greedy_maxlogdet)",
-    "auto": "ROADMAP A17 (selection.auto_maxlogdet)",
-    "active": "ROADMAP A17 (gf/active_matching.py)",
-    "random": "ROADMAP A17 (random baseline)",
-    "longlive": "ROADMAP A17 (longlive baseline)",
-}
+# Good-Feature selection modes (the reference's SlamConfig.gf_mode):
+#   subset    exact greedy Max-logDet over the 2×7 factors, seeded with the
+#             current matches' information (determinant lemma);
+#   hybrid    the same over 13-dim two-segment PWLS factors [H; H·F];
+#   lazier    lazier-than-lazy greedy over random candidate subsets;
+#   auto      lazier greedy whose budget stops at a marginal-gain floor;
+#   active    select-then-match by marginal logdet gain;
+#   random    a budget-size random subset (ablation baseline);
+#   longlive  the budget's oldest points by first keyframe (baseline).
+GF_MODES = ("subset", "hybrid", "lazier", "auto", "active", "random", "longlive")
+
+
+def check_gf_mode(gf_mode: str) -> None:
+    if gf_mode not in GF_MODES:
+        raise ValueError(f"unknown gf_mode {gf_mode!r}; one of {', '.join(GF_MODES)}")
+
+
+def gf_noise_shape(gf_mode: str, V: int, gf_budget: int, gf_batch: int) -> tuple | None:
+    """Shape of the noise a mode's selection takes over a V-point view, or
+    None for the modes that draw none."""
+    if gf_mode == "random":
+        return (V,)
+    if gf_mode == "lazier":
+        return (selection.lazier_sizes(V, gf_budget, batch=gf_batch)[1], V)
+    if gf_mode == "auto":
+        return (gf_budget, V)
+    return None
+
+
+def sample_gf_noise(gf_mode: str, V: int, gf_budget: int, gf_batch: int,
+                    generator: torch.Generator) -> torch.Tensor | None:
+    """The noise `track_local_map` takes in `gf_mode`, drawn from `generator`
+    on its device: (V,) uniform for random, (⌈budget/batch⌉, V) Gumbel for
+    lazier, (budget, V) Gumbel for auto; None otherwise."""
+    shape = gf_noise_shape(gf_mode, V, gf_budget, gf_batch)
+    if shape is None:
+        return None
+    if gf_mode == "random":
+        return torch.rand(shape, generator=generator, device=generator.device)
+    return selection.sample_gumbel(*shape, generator)
 
 
 class TrackResult(NamedTuple):
@@ -129,7 +161,7 @@ def track_local_map(
     pose: torch.Tensor,
     obs_point: torch.Tensor,   # (N,) current matches from initial tracking (global ids)
     Xv: torch.Tensor,          # (13,) PWLS state for GF Jacobians
-    gf_key: torch.Tensor | None = None,
+    gf_noise: torch.Tensor | None = None,
     scale: float = 1.2,
     n_levels: int = 8,
     radius: float = 3.0,
@@ -138,17 +170,21 @@ def track_local_map(
     use_gf: bool = False,
     gf_mode: str = "subset",
     gf_batch: int = 1,
+    dt=0.05,
 ) -> LocalMapTrackResult:
-    """Frustum-filter the view's candidates, optionally pick the GF subset by
-    greedy Max-logDet (seeded with the current matches' information), match
-    all visible candidates by projection, optimize the pose over the matches
-    of selected candidates, then merge the deferred (unselected) matches that
-    pass the χ² gate at the refined pose. `gf_key` is unused by the ported
-    modes (the reference's random modes draw from it)."""
-    if use_gf and gf_mode != "subset":
-        if gf_mode in _UNPORTED_GF_MODES:
-            raise NotImplementedError(f"gf_mode={gf_mode!r} is not ported yet: {_UNPORTED_GF_MODES[gf_mode]}")
-        raise ValueError(f"unknown gf_mode {gf_mode!r}")
+    """Frustum-filter the view's candidates, optionally restrict them by GF
+    selection in `gf_mode` (GF_MODES), match all visible candidates by
+    projection, optimize the pose over the matches of selected candidates,
+    then merge the deferred (unselected) matches that pass the χ² gate at
+    the refined pose. `gf_noise` is the random modes' noise
+    (`sample_gf_noise`); `dt` (a float or a device tensor) is the PWLS
+    segment of the hybrid mode's F matrix."""
+    if use_gf:
+        check_gf_mode(gf_mode)
+        want = gf_noise_shape(gf_mode, view.capacity, gf_budget, gf_batch)
+        got = None if gf_noise is None else tuple(gf_noise.shape)
+        if want is not None and got != want:
+            raise ValueError(f"gf_mode {gf_mode!r} takes gf_noise of shape {want} (sample_gf_noise), got {got}")
     N = frame.capacity
     P = m.pt_capacity
     lc = level_consts(scale, n_levels, pose.device)
@@ -179,10 +215,20 @@ def track_local_map(
     lvl_sigma2 = lc.sigma2
 
     # --- budgeted GF selection over the visible candidates ---
-    if use_gf:
+    match_v = visible
+    gf_sel_v = torch.zeros_like(visible)
+    if use_gf and gf_mode in ("subset", "hybrid", "lazier", "auto", "active"):
         jac = observability.measurement_jacobians(cam, Xv, pos_v)
         H_w = observability.whiten(jac.H, lvl_sigma2[pred_oct.long()])
-        factors = torch.where((jac.visible & valid_v)[:, None, None], H_w, 0.0)
+        vis_j = jac.visible & valid_v
+        if gf_mode == "hybrid":
+            factors = observability.hybrid_factors(H_w, pwls.f_matrix(Xv, dt), vis_j)
+        else:
+            factors = torch.where(vis_j[:, None, None], H_w, 0.0)
+        if gf_mode in ("lazier", "auto", "active"):
+            blocks = torch.einsum("nri,nrj->nij", factors, factors)
+        cand = visible & jac.visible
+    if use_gf and gf_mode in ("subset", "hybrid", "active"):
         # Info prior from the initial-tracking matches, whitened at their
         # keypoints' octaves.
         op0 = torch.clamp(obs_point, min=0).long()
@@ -190,14 +236,26 @@ def track_local_map(
         Hc = observability.whiten(jac_cur.H, lvl_sigma2[frame.octave.long()])
         Hc = torch.where((jac_cur.visible & (obs_point >= 0))[:, None, None], Hc, 0.0)
         info_prior7 = torch.einsum("nri,nrj->ij", Hc, Hc)
-        sel = selection.greedy_maxlogdet_lowrank(
-            factors, visible & jac.visible, k=gf_budget, batch=gf_batch, info_prior=info_prior7,
-        )
-        match_v = sel.selected
-        gf_sel_v = sel.selected
-    else:
-        match_v = visible
-        gf_sel_v = torch.zeros_like(visible)
+    if use_gf and gf_mode in ("subset", "hybrid"):
+        prior = F.pad(info_prior7, (0, 6, 0, 6)) if gf_mode == "hybrid" else info_prior7
+        sel = selection.greedy_maxlogdet_lowrank(factors, cand, k=gf_budget, batch=gf_batch, info_prior=prior)
+        match_v = gf_sel_v = sel.selected
+    elif use_gf and gf_mode == "lazier":
+        sel = selection.lazier_greedy_maxlogdet(blocks, cand, k=gf_budget, gumbel=gf_noise, batch=gf_batch)
+        match_v = gf_sel_v = sel.selected
+    elif use_gf and gf_mode == "auto":
+        sel = selection.auto_maxlogdet(blocks, cand, k_max=gf_budget, gumbel=gf_noise)
+        match_v = gf_sel_v = sel.selected
+    elif use_gf and gf_mode in ("random", "longlive"):
+        if gf_mode == "random":
+            pri = gf_noise
+        else:
+            # Older points first (smaller first keyframe); ids break ties.
+            pri = -(m.pt_first_kf[safe_ids].to(torch.float32) + safe_ids.to(torch.float32) / float(P))
+        pri = torch.where(visible, pri, -torch.inf)
+        kth = top_k_stable(pri, min(gf_budget, pri.shape[0]))[0][-1]
+        # Ties at the k-th value all pass, as in the reference.
+        match_v = gf_sel_v = visible & (pri >= kth) & torch.isfinite(pri)
 
     # --- projection matching of all visible candidates into the frame ---
     rad = radius * lc.sf[pred_oct.long()]
@@ -207,6 +265,11 @@ def track_local_map(
     res = matching.match(view.desc, frame.desc, pmask, max_dist=matching.TH_HIGH, ratio=0.8, mutual=True)
     hit_all = res.matched & visible
     hit = hit_all & match_v
+    if use_gf and gf_mode == "active":
+        # Select-then-match by marginal logdet gain over the candidates'
+        # precomputed match outcomes, seeded with the same info prior.
+        act = active_matching.active_match(blocks, cand, hit, res.idx, info_prior7, budget=gf_budget)
+        hit = gf_sel_v = act.matched
 
     obs = _scatter_ids(N, hit, res.idx, view.ids, base=obs_point)
 
@@ -280,10 +343,12 @@ def track_frame_fused(
     use_gf: bool = False,
     gf_mode: str = "subset",
     gf_batch: int = 1,
+    gf_noise: torch.Tensor | None = None,
 ) -> FusedTrackResult:
     """The per-frame WORKING path: ORB extraction → motion-model tracking
-    (with the wide-radius retry) → local-map tracking (+ GF selection) →
-    velocity update → counter deltas. Runs on the device of `img`."""
+    (with the wide-radius retry) → local-map tracking (+ GF selection, with
+    the random modes' `gf_noise`) → velocity update → counter deltas. Runs on
+    the device of `img`."""
     frame = make_frame(img, cam, orb_cfg)
     pose_pred = se3.compose(velocity, last_pose)
 
@@ -303,8 +368,8 @@ def track_frame_fused(
     dt = torch.as_tensor(dt, dtype=pose1.dtype, device=pose1.device)
     Xv = pwls.state_from_pose_pair(t0, last_pose, t0 + dt, pose1)
     r2 = track_local_map(
-        cam, m, view, frame, pose1, obs1, Xv, key, scale=scale, n_levels=n_levels,
-        gf_budget=gf_budget, use_gf=use_gf, gf_mode=gf_mode, gf_batch=gf_batch,
+        cam, m, view, frame, pose1, obs1, Xv, gf_noise, scale=scale, n_levels=n_levels,
+        gf_budget=gf_budget, use_gf=use_gf, gf_mode=gf_mode, gf_batch=gf_batch, dt=dt,
     )
     return FusedTrackResult(
         pose=r2.pose,

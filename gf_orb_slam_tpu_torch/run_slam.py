@@ -6,6 +6,7 @@ run_slam.py does.
     python -m gf_orb_slam_tpu_torch.run_slam --synthetic 240 --gf-budget 100 --out results/port
     python -m gf_orb_slam_tpu_torch.run_slam --synthetic 420 --scene room --gf-budget 100
     python -m gf_orb_slam_tpu_torch.run_slam --synthetic 40 --gf-budget 100 --device cpu
+    python -m gf_orb_slam_tpu_torch.run_slam --synthetic 240 --gf-budget 100 --gf-mode active
 
 The run is on the first CUDA card unless `--device cpu` asks for the CPU.
 Place recognition (relocalization, loop closing) is on, with the packaged
@@ -29,6 +30,7 @@ from gf_orb_slam_tpu_torch.geometry import se3
 from gf_orb_slam_tpu_torch.geometry.camera import EUROC_CAM, CameraModel
 from gf_orb_slam_tpu_torch.io_utils import evaluation, synthetic
 from gf_orb_slam_tpu_torch.pipeline.system import FrameLog, SlamConfig, SlamSystem, resolve_device
+from gf_orb_slam_tpu_torch.pipeline.tracking import GF_MODES
 from gf_orb_slam_tpu_torch.retrieval import vocabulary as voc_mod
 
 BENCH_CAMERA = CameraModel(fx=458.0, fy=458.0, cx=376.0, cy=240.0, width=752, height=480, fps=20.0)
@@ -135,7 +137,7 @@ def write_outputs(system: SlamSystem, result: dict, out: str) -> None:
         json.dump(result, f, indent=2, default=float)
 
 
-def main(argv=None) -> int:
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--synthetic", type=int, required=True, help="run N frames of a synthetic scene")
     ap.add_argument("--scene", choices=["planes", "room"], default="planes",
@@ -143,22 +145,39 @@ def main(argv=None) -> int:
                          "EuRoC camera, oblique walls, a loop to close)")
     ap.add_argument("--vocabulary", help="pretrained BoW vocabulary (.npz); default: the packaged 1M-word tree")
     ap.add_argument("--gf-budget", type=int, default=0, help="good-feature budget (0 = GF off)")
+    ap.add_argument("--gf-mode", default="subset", choices=list(GF_MODES),
+                    help="selection variant: subset=7x7 exact Max-logDet (determinant lemma), "
+                         "hybrid=13x13 [H;H*F], lazier=lazier-greedy, auto=gain-floor budget, "
+                         "active=select-then-match, random/longlive=ablation baselines")
+    ap.add_argument("--gf-warmup", type=int, default=-1,
+                    help="frames after initialization before GF selection starts; -1 keeps the config default")
     ap.add_argument("--n-features", type=int, default=0, help="override the ORB feature count")
     ap.add_argument("--out", default="results/port", help="output prefix")
     ap.add_argument("--device", default="cuda", help='"cuda" (default: fails without a card) or "cpu"')
-    ap.add_argument("--seed", type=int, default=0, help="initializer sampling seed")
+    ap.add_argument("--seed", type=int, default=0, help="sampling seed (RANSAC, the random GF modes)")
     ap.add_argument("--scene-seed", type=int, default=0, help="synthetic scene texture seed")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
 
+
+def config_from_args(args: argparse.Namespace) -> tuple[CameraModel, SlamConfig]:
+    """The camera and SlamConfig a command line asks for."""
     if args.scene == "room":
-        cam, cfg = EUROC_CAM, SlamConfig(max_frames_between_kf=6)
+        cam, cfg = EUROC_CAM, SlamConfig(max_frames_between_kf=6, gf_mode=args.gf_mode)
     else:
-        cam, cfg = BENCH_CAMERA, SlamConfig()
+        cam, cfg = BENCH_CAMERA, SlamConfig(gf_mode=args.gf_mode)
     if args.n_features:
         cfg.n_features = args.n_features
     if args.gf_budget > 0:
         cfg.use_gf = True
         cfg.gf_budget = args.gf_budget
+    if args.gf_warmup >= 0:
+        cfg.gf_warmup_frames = args.gf_warmup
+    return cam, cfg
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    cam, cfg = config_from_args(args)
     device = resolve_device(args.device)
     voc = (voc_mod.load_vocabulary(args.vocabulary, device) if args.vocabulary
            else voc_mod.load_default_vocabulary(device))

@@ -3,7 +3,8 @@ against their plain version (path shapes, tile boundaries, extreme
 descriptors, `out=`, replay in a CUDA graph), the entry points' default
 device, the tracking step on the card against the
 reference's recorded outputs, and the host synchronisations of the tracking
-stages, of the keyframe insertion, of the BoW registration and of the
+stages (in every GF mode), of the batched logdet, of the random modes'
+draws, of the keyframe insertion, of the BoW registration and of the
 relocalization. They skip where there is no GPU.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
@@ -304,3 +305,78 @@ def test_relocalize_fused_never_synchronises(cuda):
     assert hamming.LAUNCHES_BY_SHAPE[(800, 1600)] - before.get((800, 1600), 0) == 4
     assert bool(res.ok)
     assert np.abs(res.pose.cpu().numpy() - z["ref_pose"][0]).max() <= 5e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["hybrid", "lazier", "auto", "active", "random", "longlive"])
+def test_track_local_map_never_synchronises_in_any_gf_mode(cuda, mode):
+    """Local-map tracking with GF selection in `mode` (its noise drawn on
+    the card, dt a device tensor) makes no host sync, and tracks."""
+    z, meta, m, view, (pose, obs, uv, vel) = load_fixture(cuda)
+    cam, cfg, gf = CameraModel(**meta["camera"]), OrbConfig(**meta["orb_config"]), meta["gf"]
+    frame = make_frame(snapshot.to_tensor(z["frames"][0], cuda).float(), cam, cfg)
+    r1 = tracking.track_with_motion_model(cam, m, frame, se3.compose(vel, pose), obs, uv)
+    dt = torch.full((), meta["dt"], device=cuda)
+    t0 = torch.zeros((), device=cuda)
+    Xv = pwls.state_from_pose_pair(t0, pose, t0 + dt, r1.pose)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+
+    def local_map():
+        noise = tracking.sample_gf_noise(mode, view.capacity, gf["gf_budget"], gf["gf_batch"], gen)
+        return tracking.track_local_map(cam, m, view, frame, r1.pose, r1.obs_point, Xv, noise, dt=dt,
+                                        gf_budget=gf["gf_budget"], use_gf=True, gf_mode=mode, gf_batch=gf["gf_batch"])
+
+    local_map()  # caches device constants
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        r2 = local_map()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(r2.ok) and int(r2.gf_selected.sum()) > 0
+    assert np.abs(r2.pose.cpu().numpy() - z["ref_pose"][0]).max() <= 5e-3
+
+
+@pytest.mark.cuda
+def test_gf_noise_is_drawn_on_the_card(cuda):
+    from gf_orb_slam_tpu_torch import run_slam
+    from gf_orb_slam_tpu_torch.pipeline import system
+
+    s = system.SlamSystem(run_slam.BENCH_CAMERA, run_slam.bench_config(gf_mode="lazier"))
+    assert s.generator.device == cuda
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        draws = {mode: tracking.sample_gf_noise(mode, 4096, 100, 10, s.generator) for mode in tracking.GF_MODES}
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for mode, n in draws.items():
+        shape = tracking.gf_noise_shape(mode, 4096, 100, 10)
+        assert (n is None) if shape is None else (n.device == cuda and tuple(n.shape) == shape)
+    assert torch.isfinite(draws["auto"]).all() and 0.0 <= float(draws["random"].min()) < float(draws["random"].max()) < 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [7, 13])
+def test_batched_logdet_sentinel_without_a_host_read(cuda, d):
+    """The batched Cholesky of logdet_psd (4096 candidates, as active
+    matching scores them) marks non-PD matrices with the −1e30 sentinel from
+    cholesky_ex's info, on the card and without a host read."""
+    from gf_orb_slam_tpu_torch.geometry import linalg
+
+    rng = np.random.default_rng(d)
+    A = torch.from_numpy(rng.normal(size=(4096, d, d + 2)).astype(np.float32)).to(cuda)
+    M = A @ A.mT + 0.1 * torch.eye(d, device=cuda)
+    bad = torch.zeros(4096, dtype=torch.bool, device=cuda)
+    bad[::7] = True
+    M = torch.where(bad[:, None, None], M - 100.0 * torch.eye(d, device=cuda), M)  # indefinite
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ld = linalg.logdet_psd(M)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ld = ld.cpu()
+    assert torch.equal(ld[bad.cpu()], torch.full((int(bad.sum()),), -1e30))
+    want = torch.logdet(M[~bad].double().cpu()).float()
+    torch.testing.assert_close(ld[~bad.cpu()], want, rtol=1e-4, atol=1e-3)

@@ -2,6 +2,7 @@
 module of gf_orb_slam_tpu_torch, in a fresh interpreter where importing JAX
 or the JAX package fails, must succeed and leave neither loaded."""
 
+import json
 import os
 import subprocess
 import sys
@@ -9,7 +10,7 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PROBE = r"""
-import importlib, importlib.abc, pkgutil, sys
+import importlib, importlib.abc, json, pkgutil, sys
 
 BLOCKED = ("jax", "jaxlib", "gf_orb_slam_tpu")
 
@@ -30,7 +31,7 @@ for name in names:
 loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not loaded, loaded
 assert "jax" not in sys.modules
-print(len(names))
+print(json.dumps(names))
 """
 
 
@@ -39,5 +40,7 @@ def test_port_imports_without_jax():
         [sys.executable, "-c", PROBE], cwd=REPO, capture_output=True, text=True, timeout=300,
     )
     assert out.returncode == 0, out.stderr
-    n_modules = int(out.stdout.strip().splitlines()[-1])
-    assert n_modules >= 32  # every subpackage and module was walked
+    names = json.loads(out.stdout.strip().splitlines()[-1])
+    assert len(names) >= 47  # every subpackage and module was walked
+    for mod in ("gf.active_matching", "gf.selection", "geometry.pwls", "pipeline.tracking"):
+        assert f"gf_orb_slam_tpu_torch.{mod}" in names, mod

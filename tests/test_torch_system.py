@@ -286,14 +286,16 @@ def test_entry_points_run_on_the_cpu_when_asked(no_card):
 # ---------------------------------------------------------------------------
 
 
-@pytest.fixture(scope="module")
-def run20(fx):
+def run_bench_frames(fx, cfg, n_frames, on_frame=None):
+    """The first n_frames bench frames through run_sequence on the CPU, with
+    the reference's recorded initializer samples injected. Returns (system,
+    result, the sample draws' sizes)."""
     meta = json.loads(str(fx["meta"]))
     assert meta["scene_seed"] == 0 and meta["summary"]["first_working"] == 4
     scene = synthetic.make_scene(seed=meta["scene_seed"])
     ts, poses_gt = synthetic.trajectory(meta["trajectory_frames"], fps=CAM.fps)
     frames = torch.stack([torch.clamp(torch.round(synthetic.render(scene, CAM, torch.from_numpy(poses_gt[i]))), 0, 255)
-                          for i in range(N_FRAMES)])
+                          for i in range(n_frames)])
     samples = [torch.from_numpy(s).long() for s in fx["init_samples"]]
     calls = []
 
@@ -304,11 +306,16 @@ def run20(fx):
     mp = pytest.MonkeyPatch()
     mp.setattr(initializer, "sample_hypotheses", recorded)
     try:
-        s, result = run_slam.run_sequence(CAM, run_slam.bench_config(), ts[:N_FRAMES], poses_gt[:N_FRAMES], frames,
-                                          device="cpu", seed=0)
+        s, result = run_slam.run_sequence(CAM, cfg, ts[:n_frames], poses_gt[:n_frames], frames,
+                                          device="cpu", seed=0, on_frame=on_frame)
     finally:
         mp.undo()
     return s, result, calls
+
+
+@pytest.fixture(scope="module")
+def run20(fx):
+    return run_bench_frames(fx, run_slam.bench_config(), N_FRAMES)
 
 
 def test_run20_initializes_at_the_reference_frame(fx, run20):
@@ -353,3 +360,80 @@ def test_cli_runs_on_cpu(tmp_path, capsys):
                           "--out", str(tmp_path / "cli")]) == 0
     result = json.loads((tmp_path / "cli_result.json").read_text())
     assert result["frames"] == 6 and result["loops_closed"] == 0
+
+
+# ---------------------------------------------------------------------------
+# The other GF modes through SlamSystem, and their configuration
+# ---------------------------------------------------------------------------
+
+GF_FIXTURE = os.path.join(os.path.dirname(__file__), "..", "gf_orb_slam_tpu_torch", "data", "gf_modes_fixture.npz")
+
+
+@pytest.mark.parametrize("mode", ["active", "lazier"])
+def test_system_runs_gf_mode_past_the_warmup_on_cpu(fx, mode, monkeypatch):
+    """The first 20 bench frames in bench.py's configuration with `gf_mode`
+    changed: GF selection runs from frame 16 (after the 10-frame warm-up).
+    The deterministic active mode holds the reference's recorded run of the
+    same mode (gf_modes_fixture.npz) pose by pose; lazier draws its Gumbel
+    noise from the system's generator on its device each GF frame, and its
+    poses are held to the reference's lazier run (drawn from JAX's stream)
+    at the same tolerance: four GF frames move no pose by more than 2.3e-4."""
+    with np.load(GF_FIXTURE) as z:
+        ref_pose, ref_state = z[f"{mode}_pose"], z[f"{mode}_state"]
+    draws, gf_frames, frame_no = [], [], []
+    sample = tracking.sample_gf_noise
+    step = tracking.track_frame_fused
+
+    def counted_sample(*a, **kw):
+        out = sample(*a, **kw)
+        draws.append((frame_no[-1], a[-1], out))
+        return out
+
+    def counted_step(*a, **kw):
+        if kw["use_gf"]:
+            gf_frames.append(frame_no[-1])
+        return step(*a, **kw)
+
+    monkeypatch.setattr(tracking, "sample_gf_noise", counted_sample)
+    monkeypatch.setattr(tracking, "track_frame_fused", counted_step)
+    frame_no.append(0)
+    s, result, _ = run_bench_frames(fx, run_slam.bench_config(gf_mode=mode), N_FRAMES,
+                                    on_frame=lambda i, log: frame_no.append(i + 1))
+    assert gf_frames == [16, 17, 18, 19]
+    assert result["tracked"] == 16 and [lg.state for lg in s.logs[4:]] == ["WORKING"] * 16
+    assert all(ref_state[i] == system.State.WORKING.value for i in range(4, N_FRAMES))
+    if mode == "lazier":
+        assert [f for f, _, _ in draws] == gf_frames
+        assert all(gen is s.generator and n.shape == (10, 4096) and n.device == s.device for _, gen, n in draws)
+        assert not torch.equal(draws[0][2], draws[1][2])
+    else:
+        assert [n for _, _, n in draws] == [None] * 4
+    for t, p in s.trajectory:
+        i = int(round(t * CAM.fps))
+        assert np.isfinite(p).all()
+        assert rot_err(p[:4], ref_pose[i][:4]) <= 2e-3, i
+        assert np.linalg.norm(p[4:] - ref_pose[i][4:]) <= 5e-3, i
+
+
+def test_gf_mode_is_checked_at_construction():
+    for mode in tracking.GF_MODES:
+        assert system.SlamConfig(gf_mode=mode).gf_mode == mode
+    with pytest.raises(ValueError, match="unknown gf_mode 'bogus'"):
+        system.SlamConfig(gf_mode="bogus")
+    cfg = run_slam.bench_config()
+    cfg.gf_mode = "bogus"  # set after construction: the system refuses it before any frame
+    with pytest.raises(ValueError, match="unknown gf_mode 'bogus'"):
+        system.SlamSystem(CAM, cfg, device="cpu")
+
+
+def test_cli_gf_mode_and_warmup():
+    cam, cfg = run_slam.config_from_args(run_slam.parse_args(
+        ["--synthetic", "5", "--gf-budget", "80", "--gf-mode", "active", "--gf-warmup", "3"]))
+    assert cam == run_slam.BENCH_CAMERA
+    assert (cfg.use_gf, cfg.gf_budget, cfg.gf_mode, cfg.gf_warmup_frames) == (True, 80, "active", 3)
+    _, cfg = run_slam.config_from_args(run_slam.parse_args(["--synthetic", "5", "--scene", "room"]))
+    assert (cfg.use_gf, cfg.gf_mode, cfg.gf_warmup_frames) == (False, "subset", system.SlamConfig().gf_warmup_frames)
+    for mode in tracking.GF_MODES:
+        assert run_slam.parse_args(["--synthetic", "1", "--gf-mode", mode]).gf_mode == mode
+    with pytest.raises(SystemExit):
+        run_slam.parse_args(["--synthetic", "1", "--gf-mode", "bogus"])

@@ -97,8 +97,11 @@ def room_setup(n_frames: int):
     return cam, cfg, scene, synthetic.render_general, ts, poses_gt
 
 
-def run(name, cam, cfg, scene, render, ts, poses_gt, n_frames, voc, black=None) -> dict:
+def run(name, cam, cfg, scene, render, ts, poses_gt, n_frames, voc, black=None, seed: int = 0) -> dict:
     system = SlamSystem(cam, cfg)
+    if seed:  # as the reference CLI's --seed sets it
+        system._seed = seed
+        system._key = jax.random.PRNGKey(seed)
     system.set_vocabulary(voc)
 
     insert_frames: list[int] = []
@@ -171,7 +174,7 @@ def run(name, cam, cfg, scene, render, ts, poses_gt, n_frames, voc, black=None) 
         "slam_config": {k: (list(v) if isinstance(v, tuple) else v) for k, v in cfg.__dict__.items()},
         "vocabulary": "gf_orb_slam_tpu/data/vocab_1m.npz", "scene": "room" if render is synthetic.render_general
         else "planes", "scene_seed": 0, "trajectory_frames": len(ts), "frames": n_frames, "fps": FPS,
-        "black_frames": list(black) if black is not None else None, "frames_rounded_to_uint8": True,
+        "black_frames": list(black) if black is not None else None, "frames_rounded_to_uint8": True, "seed": seed,
         "summary": summary, "commit": _commit(),
     }
     print(json.dumps({"run": name, **summary, "insert_frames": insert_frames, "loops": loops,

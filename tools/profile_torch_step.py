@@ -100,7 +100,7 @@ def main() -> None:
         t2 = time.perf_counter()
         zero = torch.zeros((), device=dev)
         Xv = pwls.state_from_pose_pair(zero, last_pose, zero + dt, r1.pose)
-        r2 = tracking.track_local_map(cam, m, view, frame, r1.pose, r1.obs_point, Xv, key, **kw, **gkw)
+        r2 = tracking.track_local_map(cam, m, view, frame, r1.pose, r1.obs_point, Xv, None, **kw, **gkw, dt=dt)
         torch.cuda.synchronize()
         t3 = time.perf_counter()
         step(i % frames.shape[0])
