@@ -31,15 +31,17 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              the plain version (no yardstick), the bound, and the wrapper's
              host µs per call; and the one-block floor of both kernels. The
              wrapper counts its launches by shape; the run fails if a path
-             phase (4-7, 9) launched it at a shape not checked here;
+             phase (4-7, 9, 10) launched it at a shape not checked here;
 4. main    — the per-frame tracking step (`track_frame_fused`, GF subset mode,
              budget 100, batch 10) chained over the fixture's frames on the
              reference's map, each frame checked against the reference's
              recorded outputs; per-frame times after one warm-up frame; the
              step's host synchronisations counted (exactly one expected);
 5. system  — the whole SLAM loop from the first frame in bench.py's shipped
-             configuration: the bench's 240 frames rendered on the card and
-             rounded to uint8, run through `SlamSystem.process` (seed 0;
+             configuration: the bench's 240 frames rendered on the CPU,
+             rounded to uint8 and moved to the card (the card's own render is
+             compared with them and its differing pixels printed), run
+             through `SlamSystem.process` (seed 0;
              place recognition on with the packaged 1M-word vocabulary read
              by path: two-view initialization, tracking, keyframe insertion
              with triangulation, fusion, windowed BA and culling, BoW
@@ -67,27 +69,51 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              verification, and a correction with its pose graph and its
              SearchAndFuse timed apart;
 9. gf_modes — phase 5's run (bench.py's configuration, the 1M vocabulary,
-             seed 0) in every other GF selection mode: active and hybrid
-             over the 240 frames, lazier, auto, random and longlive over the
-             first 120 (the random modes' noise drawn on the card), each
+             seed 0) in every other GF selection mode over the first 120
+             frames (the random modes' noise drawn on the card), each
              held against the reference's recorded run of the same mode
              (first WORKING frame ≤ +2, tracked ≥ 98%, keyframes ±25%, ATE
-             ≤ 2× the largest of the reference's run and its two perturbed
-             runs, poses finite, 2 host syncs per tracked frame and 3 per
-             insertion frame); per mode the tracked-frame median and p90,
+             ≤ 2× the largest of the reference's run and its perturbed
+             runs — for active and hybrid, recorded over 240 frames, the
+             recorded run's first 120 frames alone — poses finite, 2 host
+             syncs per tracked frame and 3 per insertion frame); per mode the tracked-frame median and p90,
              the insertion median, peak device memory, and the last tracked
              frame's `track_local_map` re-run alone with GF on and off
              (SELECTION_REPS turns each, medians), so that the selection's
              own cost is the difference;
-10. profile — the profiler's device duration of both kernels at 4096×800, a
+10. dataset — the bench's frames 0-59 and 60-89 written as two EuRoC
+             sequences (the port's PNG writer, data.csv and the ground-truth
+             csv) with a settings YAML for the bench camera, read back bit for
+             bit (through the native prefetcher where it runs here), and run
+             through the command line (`run_slam.main`: `--seq --settings
+             --gf-budget 100 --gf-warmup 10 --save-map --probe-stages`, then
+             `--load-map` on the second sequence): first WORKING frame ≤ the
+             reference's + 2, tracked ≥ 98% of the reference's frames, ATE
+             through `associate_ground_truth` ≤ 2× the reference's over the
+             same 60 frames; the snapshot loads back equal to the saved map,
+             vocabulary and database; the resumed run WORKING within its
+             first 5 frames and tracking ≥ 98% of the rest; every probed
+             stage time finite and ≥ 0;
+11. global_ba — the room circuit's map after its loop correction (phase 7):
+             every valid keyframe, the first fixed, observations weighted
+             1/σ², through `parallel.global_ba.distributed_bundle_adjust` (10
+             LM × 25 PCG) on an in-process NCCL group of one, and through the
+             Schur `local_ba.bundle_adjust` as the yardstick: finite output,
+             the fixed keyframe bit-equal, the Huber cost over the map's
+             edges ≤ its initial value and ≤ 1.05× the yardstick's, keyframe
+             ATE ≤ 1.1× the map's, no host sync (sync debug "error"); ms,
+             collectives per LM iteration and peak memory; then
+             `dryrun_multichip(1)` on the card;
+12. profile — the profiler's device duration of both kernels at 4096×800, a
              cross-check of phase 3's graph times, the kernel launches of
              the last local-map call of each mode's run (subset: phase 5's),
-             of its tracking step and of its selection (GF on less off), and
+             of its tracking step and of its selection (GF on less off), the
+             launches of one global-BA LM iteration, and
              the host µs of one small eager op before and after the
              profiler ran. It comes last, so that the profiler
              cannot slow the host's launches in the timed phases.
 
-Each path phase (4-7, 9) sets the kernel's launch counts to 0 just before it
+Each path phase (4-7, 9, 10) sets the kernel's launch counts to 0 just before it
 drives the path and reads them just after. Then the kernel's launches by
 shape, the seconds each phase took, the kernel table line and, last,
 {"ok": true, "device": {...}}. The
@@ -138,7 +164,13 @@ TRACKED_SHARE = 0.98       # tracked frames ≥ the reference's less 2%
 KF_SHARE = 0.25            # keyframes inserted within ±25% of the reference's
 ATE_FACTOR = 2.0           # ATE ≤ 2× the reference's
 MIN_INSERT_LAUNCHES = 4    # Hamming launches inside every insertion
-SELECTION_REPS = 9         # phase 9: local-map tracking re-runs, GF on and off in turns
+SELECTION_REPS = 5         # phase 9: local-map tracking re-runs, GF on and off in turns
+GF_MODE_FRAMES = 120       # phase 9: frames per mode (a cut of length; the time limit)
+SYSTEM_FIXTURE = os.path.join(REPO, "gf_orb_slam_tpu_torch", "data", "system_fixture.npz")
+DATASET_FRAMES = (60, 30)  # phase 10: the bench frames of the saved run, then of the resumed one
+RESUME_WITHIN = 5          # the resumed run is WORKING within its first frames
+GBA_COST_FACTOR = 1.05     # phase 11: cost ≤ this × the Schur solver's
+GBA_ATE_FACTOR = 1.1       # keyframe ATE ≤ this × the map's before global BA
 
 
 def emit(obj) -> None:
@@ -384,11 +416,12 @@ def gf_launches(gf_runs: dict) -> dict:
     return launches
 
 
-def profile_phase(dev, gf_runs: dict) -> dict:
-    """Phase 10: the profiler's device µs of both Hamming kernels at the
+def profile_phase(dev, gf_runs: dict, loop: dict) -> dict:
+    """Phase 12: the profiler's device µs of both Hamming kernels at the
     first timed shape; the launches of each GF mode (gf_launches: subset
-    from phase 5, the others from phase 9); and the host µs of a small eager
-    op before and after the profiler ran."""
+    from phase 5, the others from phase 9) and of one global-BA LM
+    iteration on phase 7's map; and the host µs of a small eager op before
+    and after the profiler ran."""
     import numpy as np
     import torch
 
@@ -407,6 +440,7 @@ def profile_phase(dev, gf_runs: dict) -> dict:
     del ring
     launches = gf_launches(gf_runs)
     return {"phase": "profile", "shape": [nq, nt], "profiler": prof, "gf_mode_kernel_launches": launches,
+            "global_ba_launches_per_lm_iter": global_ba_launches(loop),
             "eager_op_host_us_before_profiler": before, "eager_op_host_us_after_profiler": host_us(lambda: x.add_(1))}
 
 
@@ -625,6 +659,7 @@ def main() -> int:
 
     # --- 8. where a place-recognition frame's time goes ---
     emit(breakdown_phase(runs) | {"device": kind, "nvidia_smi": smi})
+    loop = {k: runs["loop"][k] for k in ("system", "ts", "poses_gt")}  # phase 11's map
     del runs
     lap("breakdown")
 
@@ -635,9 +670,19 @@ def main() -> int:
         path_recs[f"gf_{mode}"] = rec
         lap(f"gf_{mode}")
 
-    # --- 10. the profiler's cross-check, after every timed phase ---
-    emit(profile_phase(dev, gf_runs) | {"device": kind, "nvidia_smi": smi})
-    del gf_runs
+    # --- 10. a dataset sequence on disk through the command line, saved and resumed ---
+    rec = run_dataset_phase(dev) | {"device": kind, "nvidia_smi": smi}
+    emit(rec)
+    path_recs["dataset"] = rec
+    lap("dataset")
+
+    # --- 11. global BA of the room circuit's map on an NCCL group ---
+    emit(run_global_ba_phase(dev, loop) | {"device": kind, "nvidia_smi": smi})
+    lap("global_ba")
+
+    # --- 12. the profiler's cross-check, after every timed phase ---
+    emit(profile_phase(dev, gf_runs, loop) | {"device": kind, "nvidia_smi": smi})
+    del gf_runs, loop
     lap("profile")
     emit({"phase": "seconds", "by_phase": seconds, "total": sum(seconds.values())})
     # Every shape a path phase launched the kernel at (phase 5's insertion
@@ -880,13 +925,37 @@ def run_record(run: dict, F: int) -> dict:
     }
 
 
+_BENCH: dict = {}  # the bench sequence, rendered once (on the CPU) for phases 5, 6, 9 and 10
+
+
 def bench_sequence(dev, meta):
+    """(camera, timestamps, ground truth, frames on the card) of the bench
+    sequence a fixture run was recorded on."""
     from gf_orb_slam_tpu_torch import run_slam
 
     cam = run_slam.BENCH_CAMERA._replace(**{k: meta["camera"][k] for k in ("fx", "fy", "cx", "cy", "width", "height",
                                                                           "fps")})
-    ts, poses_gt, frames = run_slam.render_sequence(cam, meta["trajectory_frames"], meta["scene_seed"], dev)
-    return cam, ts, poses_gt, frames
+    key = (cam, meta["trajectory_frames"], meta["scene_seed"])
+    if key not in _BENCH:
+        _BENCH.clear()
+        _BENCH[key] = run_slam.render_sequence(cam, meta["trajectory_frames"], meta["scene_seed"], dev)
+    return (cam, *_BENCH[key])
+
+
+def render_difference(cam, n: int, scene_seed: int, frames) -> dict:
+    """Pixels where the card's own render of the bench sequence differs
+    from `frames` (the CPU's, as the runs use them)."""
+    import torch
+
+    from gf_orb_slam_tpu_torch import run_slam
+
+    _, _, card = run_slam.render_sequence(cam, n, scene_seed, frames.device, render_device=frames.device)
+    diff = (card[: frames.shape[0]] - frames).abs()
+    out = {"frames": frames.shape[0], "pixels_differing": int((diff > 0).sum()), "pixels": diff.numel(),
+           "max_abs_diff": float(diff.max()), "frames_differing": int((diff > 0).flatten(1).any(1).sum())}
+    del card, diff
+    torch.cuda.empty_cache()
+    return out
 
 
 def run_system_phase(dev, voc):
@@ -905,11 +974,13 @@ def run_system_phase(dev, voc):
     frames = frames[:F]
     torch.cuda.synchronize()
     render_s = time.perf_counter() - t0
+    card_render = render_difference(cam, meta["trajectory_frames"], meta["scene_seed"], frames)
     run = drive_system(dev, cam, run_slam.bench_config(), ts[:F], poses_gt[:F], frames, voc, seed=0)
     # One insertion again, on the map it was given, with every sync counted.
     a, kw = run["last_args"]["insert"]
     insert_syncs = count_host_syncs(lambda: run["originals"]["insert"](*a, **kw))
     rec = {"phase": "system", "entry": "pipeline.system.SlamSystem.process", "render_seconds": render_s,
+           "frames_rendered_on": "cpu", "card_render_vs_cpu": card_render,
            **run_record(run, F), "host_syncs_in_insert_keyframe_fused": insert_syncs}
     ref_insert_frames = [int(f) for f in z["insert_frames"][1:]]  # the initialization frame first
     rec.update({
@@ -1025,7 +1096,24 @@ def run_loop_phase(dev, voc):
         bad.append(f"ATE {rec['ate_rmse_m']} m (reference {ref['ate_rmse_m']} m)")
     if bad:
         raise AssertionError("loop phase outside its gates: " + "; ".join(bad) + f" — {short(rec)}")
-    return rec, {k: run[k] for k in ("last_args", "originals")}
+    return rec, {k: run[k] for k in ("last_args", "originals", "system")} | {"ts": ts, "poses_gt": poses_gt}
+
+
+def reference_prefix(z: dict, poses_gt, F: int) -> dict:
+    """The summary of a recorded reference run (per-frame state and pose,
+    insertion frames) over its first F frames."""
+    import numpy as np
+
+    from gf_orb_slam_tpu_torch import run_slam
+    from gf_orb_slam_tpu_torch.io_utils import evaluation
+
+    pose = z["pose"][:F]
+    ok = np.isfinite(pose).all(axis=1)
+    return {"first_working": int(np.flatnonzero(z["state"][:F] == 3)[0]), "tracked": int(ok.sum()),
+            "keyframes_inserted": int((z["insert_frames"][1:] < F).sum()) + 2,
+            "ate_rmse_m": evaluation.ate_rmse(run_slam.camera_centers(pose[ok]),
+                                              run_slam.camera_centers(poses_gt[:F][ok])),
+            "loops_closed": int((z["loops"][:, 0] < F).sum()) if len(z.get("loops", ())) else 0}
 
 
 def run_gf_modes_phase(dev, voc):
@@ -1044,11 +1132,18 @@ def run_gf_modes_phase(dev, voc):
     render_s = time.perf_counter() - t0
     for mode in GF_MODES:
         meta, z = load_place_fixture(mode, GF_MODES_FIXTURE)
-        ref, F = meta["summary"], meta["frames"]
+        ref, F = meta["summary"], min(meta["frames"], GF_MODE_FRAMES)
         # The reference's ATE in this mode moves with perturbations as small
         # as its own float32 round-off (the fixture's spread runs): the port,
-        # one more such perturbation, is held to 2× the largest.
-        ref_ates = [ref["ate_rmse_m"]] + [r["summary"]["ate_rmse_m"] for r in json.loads(str(z["spread"]))]
+        # one more such perturbation, is held to 2× the largest. A run cut
+        # shorter than the recorded one is held to the recorded run's first
+        # F frames (the spread runs are summaries of their whole length).
+        spread = [r["summary"]["ate_rmse_m"] for r in json.loads(str(z["spread"]))]
+        if F < meta["frames"]:
+            ref = reference_prefix(z, poses_gt, F)
+            ref_ates = [ref["ate_rmse_m"]]
+        else:
+            ref_ates = [ref["ate_rmse_m"]] + spread
         cfg = run_slam.bench_config(gf_mode=mode)
         for k in ("gf_mode", "gf_budget", "gf_batch", "gf_warmup_frames", "max_frames_between_kf", "n_features"):
             if getattr(cfg, k) != meta["slam_config"][k]:
@@ -1072,6 +1167,7 @@ def run_gf_modes_phase(dev, voc):
             "ref_first_working": ref["first_working"], "ref_tracked": ref["tracked"],
             "ref_keyframes_inserted": ref["keyframes_inserted"], "ref_ate_rmse_m": ref["ate_rmse_m"],
             "ref_ate_rmse_m_spread": ref_ates, "ref_loops_closed": ref["loops_closed"],
+            "ref_frames": meta["frames"], "ref_ate_rmse_m_spread_recorded_length": spread,
         })
         bad = []
         if not rec["poses_finite"]:
@@ -1092,6 +1188,244 @@ def run_gf_modes_phase(dev, voc):
         yield mode, rec, {"local_map": own(run["last_args"]["local_map"]),
                           "originals": {"local_map": run["originals"]["local_map"]}}
         del run
+
+
+def run_dataset_phase(dev) -> dict:
+    """Phase 10: the bench's frames as two EuRoC sequences on disk, run by
+    the command line with a settings file: saved, resumed from the snapshot,
+    and probed stage by stage. Raises on any gate."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from gf_orb_slam_tpu_torch import run_slam
+    from gf_orb_slam_tpu_torch.io_utils import datasets, prefetch, settings, snapshot, stage_probe
+    from gf_orb_slam_tpu_torch.kernels import hamming
+
+    meta, _ = load_place_fixture("bench")
+    cam, ts, poses_gt, frames = bench_sequence(dev, meta)
+    n_a, n_b = DATASET_FRAMES
+    u8 = frames[: n_a + n_b].to(torch.uint8).cpu().numpy()
+    with np.load(SYSTEM_FIXTURE) as zf:
+        ref = reference_prefix({k: zf[k] for k in ("pose", "state", "insert_frames")}, zf["gt_pose"], n_a)
+    ref_ate, ref_first, ref_tracked = ref["ate_rmse_m"], ref["first_working"], ref["tracked"]
+    saved = {}
+    save_map = snapshot.save_map
+
+    def recording_save_map(path, m, voc=None, db=None):
+        saved.update(m=m, voc=voc, db=db)
+        return save_map(path, m, voc, db)
+
+    rec = {"phase": "dataset", "entry": "run_slam.main --seq", "frames": [n_a, n_b],
+           "native_prefetch": prefetch.native_available()}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dataset_") as tmp:
+        t0 = time.perf_counter()
+        seq_a = datasets.write_euroc(os.path.join(tmp, "bench_a"), ts[:n_a], u8[:n_a], poses_gt[:n_a])
+        seq_b = datasets.write_euroc(os.path.join(tmp, "bench_b"), ts[n_a : n_a + n_b], u8[n_a:], poses_gt[n_a : n_a + n_b])
+        yaml = os.path.join(tmp, "bench.yaml")
+        settings.write_settings(yaml, cam, run_slam.bench_config())
+        rec["write_seconds"] = time.perf_counter() - t0
+        back = []
+        for seq in (seq_a, seq_b):
+            with prefetch.FramePrefetcher(seq.image_paths, cam.width, cam.height) as pf:
+                back += [img for _, img in pf]
+        rec["frames_read_back_equal"] = len(back) == len(u8) and all(
+            np.array_equal(b, f.astype(np.float32)) for b, f in zip(back, u8))
+        common = ["--settings", yaml, "--gf-budget", "100", "--gf-warmup", "10", "--device", dev.type]
+        npz = os.path.join(tmp, "bench_a_map.npz")
+        snapshot.save_map = recording_save_map
+        reset_launch_counts()
+        try:
+            t0 = time.perf_counter()
+            run_slam.main(["--seq", os.path.join(tmp, "bench_a"), *common, "--save-map", npz,
+                           "--probe-stages", "--out", os.path.join(tmp, "a")])
+            rec["run_a_seconds"] = time.perf_counter() - t0
+        finally:
+            snapshot.save_map = save_map
+        launches, by_shape = hamming.LAUNCHES, collections.Counter(hamming.LAUNCHES_BY_SHAPE)
+        with open(os.path.join(tmp, "a_result.json")) as f:
+            res_a = json.load(f)
+        tracked_a = [float(line.split()[0]) for line in open(os.path.join(tmp, "a_AllFrameTrajectory.txt"))]
+        first_working = int(np.argmin(np.abs(np.asarray(seq_a.timestamps) - tracked_a[0]))) if tracked_a else -1
+        t0 = time.perf_counter()
+        m, voc, db = snapshot.load_map(npz, dev)
+        rec["load_map_seconds"] = time.perf_counter() - t0
+        rec["snapshot_mib"] = os.path.getsize(npz) / 2**20
+        rec["snapshot_equal"] = (all(torch.equal(a, b) for a, b in zip(m, saved["m"]))
+                                 and all(torch.equal(getattr(voc, f), getattr(saved["voc"], f))
+                                         for f in ("centers", "weights")) and (voc.k, voc.L) == (saved["voc"].k, saved["voc"].L)
+                                 and all(torch.equal(a, b) for a, b in zip(db, saved["db"])))
+        del m, voc, db, saved
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        run_slam.main(["--seq", os.path.join(tmp, "bench_b"), *common, "--load-map", npz, "--out",
+                       os.path.join(tmp, "b")])
+        rec["run_b_seconds"] = time.perf_counter() - t0
+        launches += hamming.LAUNCHES
+        by_shape += collections.Counter(hamming.LAUNCHES_BY_SHAPE)
+        with open(os.path.join(tmp, "b_result.json")) as f:
+            res_b = json.load(f)
+        tracked_b = [float(line.split()[0]) for line in open(os.path.join(tmp, "b_AllFrameTrajectory.txt"))]
+        resumed_at = int(np.argmin(np.abs(np.asarray(seq_b.timestamps) - tracked_b[0]))) if tracked_b else -1
+    stages = res_a.get("device_stages_ms", {})
+    rec.update({
+        "first_working": first_working, "ref_first_working": ref_first, "tracked": res_a["tracked"],
+        "ref_tracked": ref_tracked, "keyframes": res_a["keyframes"], "ate_rmse_m": res_a.get("ate_rmse_m"),
+        "ref_ate_rmse_m": ref_ate, "timing_median_ms": {k: v.get("median_ms") for k, v in res_a["timing"].items()},
+        "device_stages_ms": stages, "resumed_working_at": resumed_at, "resumed_tracked": res_b["tracked"],
+        "resumed_frames": res_b["frames"], "resumed_ate_rmse_m": res_b.get("ate_rmse_m"),
+        "resumed_timing_median_ms": {k: v.get("median_ms") for k, v in res_b["timing"].items()},
+        "hamming_launches": launches,
+        "hamming_launches_by_shape": {f"{nq}x{nt}": n for (nq, nt), n in sorted(by_shape.items())},
+    })
+    bad = []
+    if not rec["frames_read_back_equal"]:
+        bad.append("the frames read back differ from the frames written")
+    if first_working < 0 or first_working > ref_first + WORKING_SLACK:
+        bad.append(f"first WORKING frame {first_working} (reference {ref_first})")
+    if rec["tracked"] < TRACKED_SHARE * ref_tracked:
+        bad.append(f"tracked {rec['tracked']} of {n_a} (reference {ref_tracked})")
+    if rec["ate_rmse_m"] is None or rec["ate_rmse_m"] > ATE_FACTOR * ref_ate:
+        bad.append(f"ATE {rec['ate_rmse_m']} m (reference {ref_ate} m over the same frames)")
+    if not rec["snapshot_equal"]:
+        bad.append("save_map → load_map did not give back the map, vocabulary and database")
+    if resumed_at < 0 or resumed_at >= RESUME_WITHIN:
+        bad.append(f"the resumed run WORKING at its frame {resumed_at} (expected < {RESUME_WITHIN})")
+    elif res_b["tracked"] < TRACKED_SHARE * (n_b - resumed_at):
+        bad.append(f"the resumed run tracked {res_b['tracked']} of its {n_b - resumed_at} frames after relocalizing")
+    if list(stages) != list(stage_probe.STAGES) or not all(math.isfinite(v) and v >= 0 for v in stages.values()):
+        bad.append(f"probed stage times {stages}")
+    if bad:
+        raise AssertionError("dataset phase outside its gates: " + "; ".join(bad) + f" — {rec}")
+    return rec
+
+
+def global_ba_problem(loop: dict):
+    """(problem, keyframe ids, camera) of global BA over phase 7's map:
+    every valid keyframe, the first fixed."""
+    import torch
+
+    system = loop["system"]
+    ids = torch.nonzero(system.map.kf_valid).flatten().tolist()
+    prob, _, _, _ = system.ba_problem(system.map, ids, fixed_ids=ids[:1])
+    return prob, ids, system.cam
+
+
+def keyframe_ate(poses, ids, loop: dict) -> float:
+    """ATE of keyframe poses (T_cw rows for keyframe ids) against the
+    ground truth at their timestamps."""
+    import numpy as np
+
+    from gf_orb_slam_tpu_torch import run_slam
+    from gf_orb_slam_tpu_torch.io_utils import evaluation
+
+    kf_ts = loop["system"].map.kf_timestamp.cpu().numpy()[ids]  # float32: the nearest frame's
+    frame = np.abs(np.asarray(loop["ts"])[None, :] - kf_ts[:, None]).argmin(axis=1)
+    return evaluation.ate_rmse(run_slam.camera_centers(poses.cpu().numpy()),
+                               run_slam.camera_centers(loop["poses_gt"])[frame])
+
+
+def run_global_ba_phase(dev, loop: dict) -> dict:
+    """Phase 11: global BA of the room circuit's corrected map on an NCCL
+    group of one, against the Schur solver. Raises on any gate."""
+    import torch
+    import torch.distributed as dist
+
+    from gf_orb_slam_tpu_torch.parallel import global_ba, launch
+    from gf_orb_slam_tpu_torch.solvers import local_ba
+
+    prob, ids, cam = global_ba_problem(loop)
+    active0 = (prob.obs_point >= 0) & (prob.obs_w > 0)
+
+    def cost(poses, points):
+        return float(local_ba._cost(cam, poses, points, prob.obs_uv, prob.obs_point, prob.obs_w, active0))
+
+    rec = {"phase": "global_ba", "entry": "parallel.global_ba.distributed_bundle_adjust", "keyframes": len(ids),
+           "observation_slots": prob.obs_point.shape[1], "point_capacity": prob.points.shape[0],
+           "points": int(prob.point_valid.sum()), "edges": int(active0.sum()), "lm_iters": 10, "pcg_iters": 25,
+           "initial_cost": cost(prob.poses, prob.points), "initial_keyframe_ate_m": keyframe_ate(prob.poses, ids, loop)}
+    names = ("all_reduce", "reduce_scatter_tensor", "all_gather_into_tensor")
+    counts = collections.Counter()
+    originals = {n: getattr(dist, n) for n in names}
+
+    def counting(n):
+        def call(*a, **kw):
+            counts[n] += 1
+            return originals[n](*a, **kw)
+        return call
+
+    with launch.nccl_group() as group:
+        rec["backend"] = dist.get_backend(group)
+        global_ba.distributed_bundle_adjust(cam, prob, group, n_lm_iters=1)  # the communicator, cuBLAS handles
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mib = torch.cuda.memory_allocated() / 2**20
+        for n in names:
+            setattr(dist, n, counting(n))
+        try:
+            t0 = time.perf_counter()
+            res = global_ba.distributed_bundle_adjust(cam, prob, group)
+            torch.cuda.synchronize()
+            rec["ms"] = (time.perf_counter() - t0) * 1e3
+        finally:
+            for n in names:
+                setattr(dist, n, originals[n])
+        rec["peak_memory_mib"] = torch.cuda.max_memory_allocated() / 2**20 - base_mib
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            again = global_ba.distributed_bundle_adjust(cam, prob, group)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        res = global_ba.gather_result(res, len(ids), group)
+    rec["ms_per_lm_iter"] = rec["ms"] / 10
+    rec["collectives_per_lm_iter"] = {n: counts[n] / 10 for n in names} | {"total": sum(counts.values()) / 10}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mib = torch.cuda.memory_allocated() / 2**20
+    t0 = time.perf_counter()
+    schur = local_ba.bundle_adjust(cam, prob)
+    torch.cuda.synchronize()
+    rec["schur_ms"] = (time.perf_counter() - t0) * 1e3
+    rec["schur_peak_memory_mib"] = torch.cuda.max_memory_allocated() / 2**20 - base_mib
+    fixed = prob.fixed
+    finite = all(bool(torch.isfinite(t).all()) for t in (res.poses, res.points, res.cost))
+    rec.update({
+        "final_cost": cost(res.poses, res.points), "reported_cost": float(res.cost),
+        "schur_cost": cost(schur.poses, schur.points), "final_keyframe_ate_m": keyframe_ate(res.poses, ids, loop),
+        "schur_keyframe_ate_m": keyframe_ate(schur.poses, ids, loop), "finite": finite,
+        "fixed_bit_equal": bool(torch.equal(res.poses[fixed], prob.poses[fixed])),
+        "repeat_max_abs_pose_diff": float((again.poses - res.poses).abs().max()),
+        "obs_active_share": float(res.obs_active.float().mean()),
+        "dryrun_multichip_1_cost": launch.dryrun_multichip(1),
+    })
+    bad = []
+    if not finite:
+        bad.append("non-finite output")
+    if not rec["fixed_bit_equal"]:
+        bad.append("the fixed keyframe moved")
+    if not rec["final_cost"] <= rec["initial_cost"]:
+        bad.append(f"cost rose from {rec['initial_cost']} to {rec['final_cost']}")
+    if not rec["final_cost"] <= GBA_COST_FACTOR * rec["schur_cost"]:
+        bad.append(f"cost {rec['final_cost']} > {GBA_COST_FACTOR}× the Schur solver's {rec['schur_cost']}")
+    if not rec["final_keyframe_ate_m"] <= GBA_ATE_FACTOR * rec["initial_keyframe_ate_m"]:
+        bad.append(f"keyframe ATE {rec['final_keyframe_ate_m']} m > {GBA_ATE_FACTOR}× the map's "
+                   f"{rec['initial_keyframe_ate_m']} m")
+    if bad:
+        raise AssertionError("global_ba phase outside its gates: " + "; ".join(bad) + f" — {rec}")
+    return rec
+
+
+def global_ba_launches(loop: dict) -> int:
+    """Kernel launches of one LM iteration of the global BA (two iterations
+    less one), on an NCCL group of one."""
+    from gf_orb_slam_tpu_torch.parallel import global_ba, launch
+
+    prob, _, cam = global_ba_problem(loop)
+    with launch.nccl_group() as group:
+        one = launches_of(lambda: global_ba.distributed_bundle_adjust(cam, prob, group, n_lm_iters=1))
+        two = launches_of(lambda: global_ba.distributed_bundle_adjust(cam, prob, group, n_lm_iters=2))
+    return two - one
 
 
 def short(rec: dict) -> dict:

@@ -1,22 +1,29 @@
 """gf_orb_slam_tpu_torch — the PyTorch / CUDA port of gf_orb_slam_tpu.
 
-The SLAM loop without place recognition — two-view initialization,
-per-frame tracking (ORB extraction → motion-model tracking → Good-Feature
-selection → local-map tracking), keyframe insertion with local mapping, and
-the system's state machine — as plain functions on torch tensors, with the
+The whole SLAM system — two-view initialization, per-frame tracking (ORB
+extraction → motion-model tracking → Good-Feature selection in every mode →
+local-map tracking), keyframe insertion with local mapping, place
+recognition (BoW retrieval, relocalization, Sim(3) loop closing), the
+system's state machine, distributed global bundle adjustment, and dataset,
+snapshot and vocabulary I/O — as plain functions on torch tensors, with the
 Hamming distance matrix as a hand-written CUDA kernel for Hopper
 (kernels/hamming.py, csrc/hamming.cu). The JAX package is the reference each
 module is tested against; this package never imports it.
 
 Layout mirrors the reference:
-  geometry/   quaternions, SE(3), pinhole camera, PWLS state, small linalg
+  geometry/   quaternions, SE(3), Sim(3), pinhole camera, PWLS state, small linalg
   ops/        pyramid, FAST, ORB, Hamming matching
   kernels/    CUDA kernel wrappers and their nvcc build (sources in csrc/)
-  gf/         measurement Jacobians, Max-logDet greedy selection
-  solvers/    pose-only LM, two-view initializer, Schur bundle adjustment
+  gf/         measurement Jacobians, Max-logDet selections, active matching
+  solvers/    pose-only LM, two-view initializer, Schur bundle adjustment,
+              PnP, Sim(3), pose graph
   mapping/    MapState and its functional updates, keyframe operations, FrameData
+  retrieval/  BoW vocabulary (and its files), keyframe database
+  loop/       loop detection, verification and correction
   pipeline/   track view, per-frame tracking, local mapping, SlamSystem
-  io_utils/   map snapshots, the synthetic planes scene, evaluation, timing
+  parallel/   keyframe-sharded global BA on torch.distributed, process groups
+  io_utils/   datasets, images, settings, prefetch, map snapshots, the
+              synthetic scenes, evaluation, timing, the stage probe
   run_slam    the command line (python -m gf_orb_slam_tpu_torch.run_slam)
 
 Descriptors are (·, 8) int32 bit views of the reference's uint32 words.

@@ -1,8 +1,11 @@
-"""Reading the reference's map snapshots and in-memory numpy state into the
-port's tensors (the read side of gf_orb_slam_tpu/io_utils/snapshot.py).
+"""Map snapshots (port of gf_orb_slam_tpu/io_utils/snapshot.py) and
+in-memory numpy state as the port's tensors.
 
-uint32 arrays (descriptors) become int32 bit views; bool arrays become
-torch.bool; everything else keeps its dtype. Only numpy is needed to read.
+A snapshot is one npz of the map's fields (`map_*`), the vocabulary
+(`voc_*`) and the BoW database (`db_*`) in the reference's schema, so each
+side reads the other's files. Descriptor arrays are uint32 on disk and int32
+bit views in the port; bool arrays become torch.bool; everything else keeps
+its dtype. Only numpy is needed to read or write.
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ import numpy as np
 import torch
 
 from gf_orb_slam_tpu_torch.mapping.frame import FrameData
-from gf_orb_slam_tpu_torch.mapping.map_state import MapState
+from gf_orb_slam_tpu_torch.mapping.map_state import MapState, to_numpy
 from gf_orb_slam_tpu_torch.pipeline.track_view import TrackView
 
 
@@ -45,10 +48,47 @@ def frame_from_numpy(arrays: Mapping[str, np.ndarray], device, prefix: str = "")
     return FrameData(**_select(arrays, prefix, FrameData._fields, device))
 
 
+def save_map(path: str, m: MapState, voc=None, db=None) -> None:
+    """Write the map, and the vocabulary and BoW database where given, in
+    the reference's npz schema (descriptors and vocabulary centres uint32)."""
+    arrays = {f"map_{k}": v for k, v in to_numpy(m).items()}
+    if voc is not None:
+        arrays.update(voc_centers=voc.centers.cpu().numpy().view(np.uint32), voc_weights=voc.weights.cpu().numpy(),
+                      voc_kL=np.asarray([voc.k, voc.L]))
+        if voc.children is not None:
+            arrays.update(voc_children=voc.children.cpu().numpy(), voc_word_of_node=voc.word_of_node.cpu().numpy())
+    if db is not None:
+        arrays.update({f"db_{k}": v.cpu().numpy() for k, v in db._asdict().items()})
+    np.savez_compressed(path, **arrays)
+
+
+def rebuild_legacy_db(arrays: Mapping[str, np.ndarray]) -> dict[str, np.ndarray]:
+    """The sparse database fields (numpy) of a snapshot from before the
+    sparse BoW database: its dense (K, n_words) `db_bow` becomes each
+    keyframe's (word id, tf-idf) row, word ids in keypoint order of first
+    occurrence, so that resuming keeps the loop-closing and relocalization
+    state (a copy of the reference's rebuild)."""
+    bow = np.asarray(arrays["db_bow"])                     # (K, n_words)
+    words = np.asarray(arrays["db_words"])                 # (K, N)
+    K, N = words.shape
+    n_words = bow.shape[1]
+    ids = np.full((K, N), n_words, np.int32)
+    vals = np.zeros((K, N), np.float32)
+    for k in range(K):
+        w = words[k]
+        uniq, first = np.unique(w[w >= 0], return_index=True)
+        pos = np.flatnonzero(w >= 0)[first]
+        ids[k, pos] = uniq
+        vals[k, pos] = bow[k, uniq]
+    return {"db_bow_ids": ids, "db_bow_vals": vals, "db_words": words,
+            "db_mid_nodes": np.asarray(arrays["db_mid_nodes"]), "db_valid": np.asarray(arrays["db_valid"])}
+
+
 def load_map(path: str, device):
-    """A reference snapshot (`save_map`) on `device`: (MapState, Vocabulary
-    or None, BowDatabase or None). Snapshots from before the sparse BoW
-    database (a dense `db_bow`) carry no database here."""
+    """A snapshot (this module's or the reference's `save_map`) on `device`:
+    (MapState, Vocabulary or None, BowDatabase or None). A snapshot from
+    before the sparse BoW database (a dense `db_bow`) has its database
+    rebuilt (rebuild_legacy_db)."""
     from gf_orb_slam_tpu_torch.retrieval import keyframe_db as kdb
     from gf_orb_slam_tpu_torch.retrieval import vocabulary as voc_mod
 
@@ -63,6 +103,8 @@ def load_map(path: str, device):
         voc = voc_mod.Vocabulary(centers=to_tensor(arrays["voc_centers"], device),
                                  weights=to_tensor(arrays["voc_weights"], device), k=k, L=L, **opt)
     db = None
+    if "db_bow_ids" not in arrays and "db_bow" in arrays:
+        arrays.update(rebuild_legacy_db(arrays))
     if "db_bow_ids" in arrays:
         db = kdb.BowDatabase(**_select(arrays, "db_", kdb.BowDatabase._fields, device))
     return m, voc, db

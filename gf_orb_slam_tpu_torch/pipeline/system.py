@@ -535,27 +535,31 @@ class SlamSystem:
         return False
 
     # ------------------------------------------------------------------
-    def _insert_keyframe(self, frame, pose, obs_point, timestamp):
-        """CreateNewKeyFrame + the LocalMapping sequence, one call with no
-        host read (pipeline/local_mapping.py), then the BoW registration and
-        loop-candidate ranking (no host read either); their results are read
-        right after in one copy."""
+    def insertion_args(self, frame, pose, obs_point, frame_id, timestamp) -> tuple[tuple, dict]:
+        """(args, kwargs) of local_mapping.insert_keyframe_fused that insert
+        `frame` into the current map in this configuration: the frame's
+        keypoints padded to the map's keypoint capacity."""
         cfg = self.cfg
         pad = self.map.kp_capacity - frame.capacity
 
         def pz(a, fill=0):
             return a if pad == 0 else F.pad(a, [0, 0] * (a.dim() - 1) + [0, pad], value=fill)
 
-        res = local_mapping.insert_keyframe_fused(
-            self.cam, self.map, pose, self.frame_id, timestamp,
-            pz(frame.uv), pz(frame.octave), pz(frame.angle), pz(frame.desc),
-            pz(frame.valid, False), pz(obs_point, ms.NO_POINT),
-            scale=cfg.scale, n_levels=cfg.n_levels,
-            ba_window=cfg.ba_window, ba_fixed=cfg.ba_fixed,
-            n_tri_neighbors=cfg.triangulate_neighbors,
-            ba_points=cfg.ba_points, ba_iters=tuple(cfg.ba_iters),
-            view_size=cfg.view_size,
-        )
+        args = (self.cam, self.map, pose, frame_id, timestamp, pz(frame.uv), pz(frame.octave), pz(frame.angle),
+                pz(frame.desc), pz(frame.valid, False), pz(obs_point, ms.NO_POINT))
+        kwargs = dict(scale=cfg.scale, n_levels=cfg.n_levels, ba_window=cfg.ba_window, ba_fixed=cfg.ba_fixed,
+                      n_tri_neighbors=cfg.triangulate_neighbors, ba_points=cfg.ba_points,
+                      ba_iters=tuple(cfg.ba_iters), view_size=cfg.view_size)
+        return args, kwargs
+
+    def _insert_keyframe(self, frame, pose, obs_point, timestamp):
+        """CreateNewKeyFrame + the LocalMapping sequence, one call with no
+        host read (pipeline/local_mapping.py), then the BoW registration and
+        loop-candidate ranking (no host read either); their results are read
+        right after in one copy."""
+        cfg = self.cfg
+        a, kw = self.insertion_args(frame, pose, obs_point, self.frame_id, timestamp)
+        res = local_mapping.insert_keyframe_fused(*a, **kw)
         self.map = res.m
         self.n_kf += 1
         self.last_kf_frame = self.frame_id
@@ -586,14 +590,15 @@ class SlamSystem:
         return res
 
     # ------------------------------------------------------------------
-    def _run_local_ba(self, m, kf_ids, fixed_ids, iters=(5, 10), row_active=None):
-        """BA over the chosen keyframes with the results written back (used
-        by the bootstrap; runs once, so its index lists cross to the device
-        as they are)."""
+    def ba_problem(self, m, kf_ids, fixed_ids, row_active=None):
+        """The BA problem over the keyframes `kf_ids` of map m (list order),
+        those in `fixed_ids` or not row-active held fixed: their poses, the
+        valid points they observe, and every observation weighted 1/σ² of
+        its octave. Returns (problem, ids, row-active mask, point mask)."""
         if row_active is None:
             row_active = [True] * len(kf_ids)
         dev = self.device
-        P, K = m.pt_capacity, m.kf_capacity
+        P = m.pt_capacity
         ids = torch.tensor(kf_ids, dtype=torch.int64, device=dev)
         act = torch.tensor(row_active, dtype=torch.bool, device=dev)
         obs_point = torch.where(act[:, None], m.kf_obs_point[ids], ms.NO_POINT)
@@ -606,13 +611,21 @@ class SlamSystem:
             obs_uv=m.kf_kp_uv[ids], obs_point=obs_point,
             obs_w=torch.where(obs_point >= 0, 1.0 / sigma2, 0.0),
         )
+        return prob, ids, act, local_pts
+
+    def _run_local_ba(self, m, kf_ids, fixed_ids, iters=(5, 10), row_active=None):
+        """BA over the chosen keyframes with the results written back (used
+        by the bootstrap; runs once, so its index lists cross to the device
+        as they are)."""
+        prob, ids, act, local_pts = self.ba_problem(m, kf_ids, fixed_ids, row_active)
         res = local_ba.bundle_adjust(self.cam, prob, iters_stage1=iters[0], iters_stage2=iters[1])
-        safe_ids = torch.where(act, ids, K)
+        safe_ids = torch.where(act, ids, m.kf_capacity)
         return m._replace(
             kf_pose=ms.set_drop(m.kf_pose, safe_ids, res.poses),
             pt_pos=torch.where(local_pts[:, None], res.points, m.pt_pos),
             # Drop observations BA classified as outliers (active rows only).
-            kf_obs_point=ms.set_drop(m.kf_obs_point, safe_ids, torch.where(res.obs_active, obs_point, ms.NO_POINT)),
+            kf_obs_point=ms.set_drop(m.kf_obs_point, safe_ids, torch.where(res.obs_active, prob.obs_point,
+                                                                            ms.NO_POINT)),
         )
 
     # ------------------------------------------------------------------

@@ -10,7 +10,8 @@ words, as everywhere in the port.
 
 The packaged pretrained trees live in the JAX package's data directory; the
 port reads them by file path with numpy and imports nothing from there.
-DBoW2 text I/O and `random_vocabulary` are not ported (ROADMAP item 19).
+Files: the DBoW2 text format (ORBvoc.txt) and the reference's binary npz,
+read and written in host numpy as the reference does.
 """
 
 from __future__ import annotations
@@ -133,6 +134,15 @@ def train_vocabulary(descs: np.ndarray, k: int = 10, L: int = 3, seed: int = 0, 
     return Vocabulary(centers=to_tensor(centers, device), weights=to_tensor(weights, device), k=k, L=L)
 
 
+def random_vocabulary(k: int = 10, L: int = 3, seed: int = 0, device=None) -> Vocabulary:
+    """Random-centre vocabulary (uniform bits), the reference's draw: enough
+    for quantization to be consistent where no training corpus exists."""
+    rng = np.random.default_rng(seed)
+    n_nodes = (k ** (L + 1) - 1) // (k - 1)
+    centers = rng.integers(0, 2**32, (n_nodes, 8), dtype=np.uint32)
+    return Vocabulary(centers=to_tensor(centers, device), weights=torch.ones(k**L, device=device), k=k, L=L)
+
+
 # ---------------------------------------------------------------------------
 # Quantization and BoW vectors
 # ---------------------------------------------------------------------------
@@ -203,13 +213,100 @@ def load_binary(path: str, device=None) -> Vocabulary:
         )
 
 
+def save_binary(path: str, voc: Vocabulary) -> None:
+    """The reference's binary vocabulary (npz): centres uint32, idf
+    weights, (k, L), and an explicit tree's child table."""
+    arrays = {"centers": voc.centers.cpu().numpy().view(np.uint32), "weights": voc.weights.cpu().numpy(),
+              "kL": np.asarray([voc.k, voc.L])}
+    if voc.children is not None:
+        arrays["children"] = voc.children.cpu().numpy()
+        arrays["word_of_node"] = voc.word_of_node.cpu().numpy()
+    np.savez_compressed(path, **arrays)
+
+
+def load_dbow2_text(path: str, device=None) -> Vocabulary:
+    """A DBoW2 text vocabulary (ORBvoc.txt, TemplatedVocabulary::saveToTextFile).
+
+    Header `k L scoring weighting`, then one line per node in creation
+    order: `parent_id is_leaf b0..b31 weight`, the 32 descriptor bytes in
+    decimal. Node ids are implicit (root 0, first line 1, …); leaves take
+    word ids in file order. Such trees are incomplete, so the result has an
+    explicit child table: rows padded with their first child (argmin's
+    first-index tie-break then lands on a real node), leaves and childless
+    nodes pointing to themselves (the descent parks there)."""
+    with open(path) as f:
+        header = f.readline().split()
+        k, L = int(header[0]), int(header[1])
+        parents, leaf_flags, descs, node_weights = [], [], [], []
+        for line in f:
+            parts = line.split()
+            if len(parts) < 35:
+                continue
+            parents.append(int(parts[0]))
+            leaf_flags.append(int(parts[1]) != 0)
+            descs.append([int(b) for b in parts[2:34]])
+            node_weights.append(float(parts[34]))
+    n = len(parents) + 1  # + root
+    centers = np.zeros((n, 32), np.uint8)
+    centers[1:] = np.asarray(descs, np.uint8)
+    centers = centers.view(np.uint32).reshape(n, 8)
+
+    children = np.full((n, k), -1, np.int64)
+    n_children = np.zeros(n, np.int64)
+    for i, p in enumerate(parents):
+        node = i + 1
+        if n_children[p] < k:
+            children[p, n_children[p]] = node
+            n_children[p] += 1
+    word_of_node = np.full(n, -1, np.int64)  # word ids in file order of leaves (createWords())
+    word_weights = []
+    for i, is_leaf in enumerate(leaf_flags):
+        if is_leaf:
+            word_of_node[i + 1] = len(word_weights)
+            word_weights.append(node_weights[i])
+    for node in range(n):
+        if n_children[node] == 0:
+            children[node] = node
+        else:
+            children[node, n_children[node]:] = children[node, 0]
+    return Vocabulary(centers=to_tensor(centers, device), weights=to_tensor(np.asarray(word_weights, np.float32), device),
+                      k=k, L=L, children=to_tensor(children.astype(np.int32), device),
+                      word_of_node=to_tensor(word_of_node.astype(np.int32), device))
+
+
+def save_dbow2_text(path: str, voc: Vocabulary) -> None:
+    """The DBoW2 text format (the inverse of load_dbow2_text), of an
+    explicit or an implicit complete tree."""
+    centers = voc.centers.cpu().numpy().view(np.uint8).reshape(-1, 32)
+    n = len(centers)
+    if voc.children is not None:
+        children = voc.children.cpu().numpy()
+        word_of_node = voc.word_of_node.cpu().numpy()
+        parents = np.zeros(n, np.int64)
+        is_leaf = word_of_node >= 0
+        for node in range(n):
+            for c in children[node]:
+                if c != node and parents[c] == 0 and c != 0:
+                    parents[c] = node
+        node_weight = np.zeros(n, np.float64)
+        node_weight[is_leaf] = voc.weights.cpu().numpy()[word_of_node[is_leaf]]
+    else:
+        parents = (np.arange(n) - 1) // voc.k
+        parents[0] = 0
+        first_leaf = voc.first_leaf()
+        is_leaf = np.arange(n) >= first_leaf
+        node_weight = np.zeros(n, np.float64)
+        node_weight[first_leaf:] = voc.weights.cpu().numpy().astype(np.float64)
+    with open(path, "w") as f:
+        f.write(f"{voc.k} {voc.L} 0 0\n")
+        for node in range(1, n):
+            bytes_s = " ".join(str(b) for b in centers[node])
+            f.write(f"{parents[node]} {1 if is_leaf[node] else 0} {bytes_s} {node_weight[node]:.6f}\n")
+
+
 def load_vocabulary(path: str, device=None) -> Vocabulary:
-    """'.txt' is the DBoW2 text format, which is not ported; anything else
-    is the binary npz."""
-    if path.endswith(".txt"):
-        raise NotImplementedError("DBoW2 text vocabularies are not ported yet (ROADMAP item 19); "
-                                  "convert with tools/bin_vocabulary.py")
-    return load_binary(path, device)
+    """'.txt' is the DBoW2 text format; anything else the binary npz."""
+    return load_dbow2_text(path, device) if path.endswith(".txt") else load_binary(path, device)
 
 
 def default_vocabulary_path() -> str:

@@ -61,6 +61,13 @@ def _edge_terms(cam: CameraModel, poses, points, obs_uv, obs_point, active):
     return r, Jpose, Jpt, ok
 
 
+def _robust_w(r, obs_w, ok):
+    """Per-edge Huber weight and χ² of residuals r (…, 2)."""
+    chi2 = torch.sum(r * r, dim=-1) * obs_w
+    hub = torch.where(chi2 > HUBER2, torch.sqrt(HUBER2 / torch.clamp(chi2, min=1e-12)), 1.0)
+    return torch.where(ok, obs_w * hub, 0.0), chi2
+
+
 def _rho(chi2):
     return torch.where(chi2 <= HUBER2, chi2, 2.0 * torch.sqrt(HUBER2 * torch.clamp(chi2, min=1e-12)) - HUBER2)
 
@@ -86,9 +93,7 @@ def _lm_step(cam: CameraModel, prob: BAProblem, active, lam):
     P = prob.points.shape[0]
     dev, dt = prob.points.device, prob.points.dtype
     r, Jpose, Jpt, ok = _edge_terms(cam, prob.poses, prob.points, prob.obs_uv, prob.obs_point, active)
-    chi2 = torch.sum(r * r, dim=-1) * prob.obs_w
-    hub = torch.where(chi2 > HUBER2, torch.sqrt(HUBER2 / torch.clamp(chi2, min=1e-12)), 1.0)
-    w = torch.where(ok, prob.obs_w * hub, 0.0)  # fixed cameras keep weight: they still constrain points
+    w, chi2 = _robust_w(r, prob.obs_w, ok)  # fixed cameras keep weight: they still constrain points
     cost_here = torch.sum(torch.where(ok, _rho(chi2), 0.0))
 
     lp = torch.clamp(prob.obs_point, min=0).long()

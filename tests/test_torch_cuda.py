@@ -380,3 +380,80 @@ def test_batched_logdet_sentinel_without_a_host_read(cuda, d):
     assert torch.equal(ld[bad.cpu()], torch.full((int(bad.sum()),), -1e30))
     want = torch.logdet(M[~bad].double().cpu()).float()
     torch.testing.assert_close(ld[~bad.cpu()], want, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_distributed_ba_on_nccl_world1_never_synchronises(cuda):
+    """The keyframe-sharded global BA on an in-process NCCL group of one
+    (10 LM × 25 PCG) makes no host sync, keeps its fixed keyframes
+    bit-equal, and agrees with the same solve on a gloo group of one on the
+    CPU (poses 1e-3, final cost 1%)."""
+    from gf_orb_slam_tpu_torch.parallel import launch
+
+    arrays = launch.dryrun_problem(4)  # 8 keyframes, 96 points
+    with launch.gloo_group():
+        want = launch.solve_numpy(arrays)
+    with launch.nccl_group():
+        launch.solve_numpy(arrays)  # first call: NCCL communicator, cuBLAS handles
+        torch.cuda.synchronize()
+        from gf_orb_slam_tpu_torch.geometry.camera import EUROC_CAM
+        from gf_orb_slam_tpu_torch.parallel import global_ba
+        from gf_orb_slam_tpu_torch.solvers.local_ba import BAProblem
+
+        prob = BAProblem(**{k: torch.from_numpy(v).to(cuda) for k, v in arrays.items()})
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = global_ba.distributed_bundle_adjust(EUROC_CAM, prob)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    fixed = arrays["fixed"]
+    got = res.poses.cpu().numpy()
+    np.testing.assert_array_equal(got[fixed], arrays["poses"][fixed])
+    assert np.abs(got - want["poses"]).max() <= 1e-3
+    assert abs(float(res.cost) - float(want["cost"])) <= 0.01 * abs(float(want["cost"]))
+    assert launch.dryrun_multichip(1) == pytest.approx(launch.dryrun_multichip(1, device="cpu"), rel=0.01)
+
+
+@pytest.mark.cuda
+def test_stage_probe_on_the_card(cuda):
+    from gf_orb_slam_tpu_torch import run_slam
+    from gf_orb_slam_tpu_torch.io_utils import stage_probe
+
+    ts, poses_gt, frames = run_slam.render_sequence(run_slam.BENCH_CAMERA, 240, device=cuda)
+    system, _ = run_slam.run_sequence(run_slam.BENCH_CAMERA, run_slam.bench_config(gf_warmup_frames=2), ts[:16],
+                                      poses_gt[:16], frames[:16], device=cuda)
+    assert system.state.name == "WORKING"
+    out = stage_probe.probe_device_stages(system, frames[16])
+    assert list(out) == list(stage_probe.STAGES) and system.time_log.device_stages_ms == out
+    assert all(np.isfinite(v) and v >= 0 for v in out.values()), out
+    assert out["extraction"] > 0 and out["keyframe_insert"] > 0
+
+
+@pytest.mark.cuda
+def test_load_map_onto_the_card(cuda, tmp_path):
+    """A snapshot the port wrote from the CPU loads onto the card equal, and
+    the system resumes from it there (LOST, then relocalized)."""
+    from gf_orb_slam_tpu_torch import run_slam
+    from gf_orb_slam_tpu_torch.pipeline import system as system_mod
+    from gf_orb_slam_tpu_torch.retrieval import keyframe_db as kdb
+    from gf_orb_slam_tpu_torch.retrieval import vocabulary as voc_mod
+
+    m, _, _ = snapshot.load_map(FIXTURE, "cpu")
+    voc = voc_mod.load_default_vocabulary("cpu")
+    db = kdb.empty_db(m.kf_capacity, m.kp_capacity, voc.n_words, device="cpu")
+    for k in np.flatnonzero(m.kf_valid.numpy()):
+        db = kdb.add_keyframe(db, voc, int(k), m.kf_kp_desc[int(k)], m.kf_kp_valid[int(k)])
+    path = str(tmp_path / "snap.npz")
+    snapshot.save_map(path, m, voc, db)
+    gm, gv, gdb = snapshot.load_map(path, cuda)
+    for got, want in ((gm, m), (gdb, db)):
+        for a, b in zip(got, want):
+            assert a.device == cuda and torch.equal(a.cpu(), b)
+    assert torch.equal(gv.centers.cpu(), voc.centers) and gv.n_words == voc.n_words
+    with np.load(FIXTURE) as z:
+        img = z["frames"][0].astype(np.float32)
+    s = system_mod.SlamSystem(run_slam.BENCH_CAMERA, run_slam.bench_config(), device=cuda)
+    s.load_map_state(gm, gv, gdb)
+    assert s.state == system_mod.State.LOST
+    assert s.process(img, 0.0).state == "WORKING"

@@ -41,6 +41,8 @@ def test_port_imports_without_jax():
     )
     assert out.returncode == 0, out.stderr
     names = json.loads(out.stdout.strip().splitlines()[-1])
-    assert len(names) >= 47  # every subpackage and module was walked
-    for mod in ("gf.active_matching", "gf.selection", "geometry.pwls", "pipeline.tracking"):
+    assert len(names) >= 55  # every subpackage and module was walked
+    for mod in ("gf.active_matching", "gf.selection", "geometry.pwls", "pipeline.tracking", "parallel.global_ba",
+                "parallel.launch", "io_utils.settings", "io_utils.datasets", "io_utils.images", "io_utils.prefetch",
+                "io_utils.stage_probe"):
         assert f"gf_orb_slam_tpu_torch.{mod}" in names, mod

@@ -172,8 +172,13 @@ def test_load_vocabulary_and_default_path(voc1m, tmp_path):
     for f in ("centers", "weights", "children", "word_of_node"):
         want = np.asarray(getattr(small, f))
         np.testing.assert_array_equal(n(getattr(got, f)).view(want.dtype), want)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        voc_mod.load_vocabulary(str(tmp_path / "v.txt"), CPU)
+    # '.txt' is the DBoW2 text format, read as the reference reads it.
+    jvoc.save_dbow2_text(str(tmp_path / "v.txt"), small)
+    got = voc_mod.load_vocabulary(str(tmp_path / "v.txt"), CPU)
+    want_txt = jvoc.load_vocabulary(str(tmp_path / "v.txt"))
+    for f in ("centers", "weights", "children", "word_of_node"):
+        want = np.asarray(getattr(want_txt, f))
+        np.testing.assert_array_equal(n(getattr(got, f)).view(want.dtype), want)
 
 
 # ---------------------------------------------------------------------------
