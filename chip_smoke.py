@@ -17,8 +17,9 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              1600-wide second keyframe's), the initialization and
              triangulation matches (1600×1600), the fusion matches
              (2048×1600), relocalization (800×1600: the lost frame against a
-             candidate keyframe) and the loop's SearchAndFuse (4800×1600:
-             three keyframes' points into one), ragged and empty shapes, the
+             candidate keyframe), the loop's SearchAndFuse (4800×1600:
+             three keyframes' points into one) and the entry step (512×512),
+             ragged and empty shapes, the
              kernel's 64×32 tile at its boundaries (tile −1, exact and +1 in
              both dimensions, and three tiles +1 rows by three tiles −1
              columns), all-zero / all-ones descriptors and an unaligned
@@ -31,7 +32,7 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              the plain version (no yardstick), the bound, and the wrapper's
              host µs per call; and the one-block floor of both kernels. The
              wrapper counts its launches by shape; the run fails if a path
-             phase (4-7, 9, 10) launched it at a shape not checked here;
+             phase launched it at a shape not checked here;
 4. main    — the per-frame tracking step (`track_frame_fused`, GF subset mode,
              budget 100, batch 10) chained over the fixture's frames on the
              reference's map, each frame checked against the reference's
@@ -58,24 +59,30 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              read per lost frame and ATE ≤ 2× the reference's;
 7. loop    — the room circuit (420 frames, radtan-distorted EuRoC camera,
              the reference CLI's room configuration at GF budget 100, scene
-             seed 0): tracked ≥ 98% of the reference's frames, a loop closed
-             whenever the reference closed one, ATE ≤ 2× the reference's,
-             every pose finite; per-frame times, the ms and host syncs of
-             each loop verification and correction, Hamming launches by
-             shape, host syncs per insertion and peak device memory;
+             seed 0) with the loop-recall hook set (the circuit's
+             ground-truth overlap, io_utils/loop_eval.py): tracked ≥ 98% of
+             the reference's frames, a loop closed whenever the reference
+             closed one, ATE ≤ 2× the reference's, every pose finite, 2 host
+             syncs per tracked frame and 3 per insertion frame (frames
+             without a loop verification); recall against the reference's
+             events on the same frames (leftovers_fixture.npz): episodes
+             within ±1, every episode the reference closed closed (within
+             EPISODE_SLACK frames), no false closure; per-frame times, the
+             ms and host syncs of each loop verification and correction,
+             Hamming launches by shape and peak device memory;
 8. breakdown — the last call of each place-recognition function of phases
              5-7 re-run alone between synchronisations: the insertion and
              its BoW registration, the lost frame's relocalization, a loop
              verification, and a correction with its pose graph and its
              SearchAndFuse timed apart;
 9. gf_modes — phase 5's run (bench.py's configuration, the 1M vocabulary,
-             seed 0) in every other GF selection mode over the first 120
+             seed 0) in every other GF selection mode over the first 60
              frames (the random modes' noise drawn on the card), each
              held against the reference's recorded run of the same mode
              (first WORKING frame ≤ +2, tracked ≥ 98%, keyframes ±25%, ATE
              ≤ 2× the largest of the reference's run and its perturbed
              runs — for active and hybrid, recorded over 240 frames, the
-             recorded run's first 120 frames alone — poses finite, 2 host
+             recorded run's first 60 frames alone — poses finite, 2 host
              syncs per tracked frame and 3 per insertion frame); per mode the tracked-frame median and p90,
              the insertion median, peak device memory, and the last tracked
              frame's `track_local_map` re-run alone with GF on and off
@@ -94,16 +101,50 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              vocabulary and database; the resumed run WORKING within its
              first 5 frames and tracking ≥ 98% of the rest; every probed
              stage time finite and ≥ 0;
+10b. bench — `gf_orb_slam_tpu_torch.bench.run_bench` over the bench's
+             first BENCH_FRAMES frames (24 warm-up, then windows of 12; the
+             bench's 240 cut for the time limit): GF-on and GF-off systems in
+             interleaved windows, the device-only chain of 20 steps; its
+             JSON line, both window lists, each system held to the
+             reference's run over the same frames (GF on: place_fixture's
+             bench; GF off: leftovers_fixture's), finite medians and
+             device-only rate;
+10c. sweep — `gf_orb_slam_tpu_torch.batch_sweep` with SWEEP_ARGS on the
+             card (run_slam.main per budget, its stage probe in round 0):
+             the summary table, each row tracking ≥ 98% of the reference
+             row's frames at ATE ≤ 2× the reference row's, and the budgets'
+             runs parting where the reference's part (60 frames: GF runs
+             after its 40-frame warm-up);
 11. global_ba — the room circuit's map after its loop correction (phase 7):
              every valid keyframe, the first fixed, observations weighted
              1/σ², through `parallel.global_ba.distributed_bundle_adjust` (10
              LM × 25 PCG) on an in-process NCCL group of one, and through the
              Schur `local_ba.bundle_adjust` as the yardstick: finite output,
              the fixed keyframe bit-equal, the Huber cost over the map's
-             edges ≤ its initial value and ≤ 1.05× the yardstick's, keyframe
-             ATE ≤ 1.1× the map's, no host sync (sync debug "error"); ms,
+             edges ≤ its initial value and ≤ 1.05× the yardstick's, no host
+             sync (sync debug "error"); and, both solves run to convergence
+             (GBA_CONVERGED: 40 LM × 100 PCG, 5 + 40 LM), the distributed
+             solve's keyframe ATE ≤ 1.1× the Schur solver's (the map's own
+             keyframe ATE and the 10-LM solve's are reported, not gated:
+             ROADMAP C4); ms,
              collectives per LM iteration and peak memory; then
              `dryrun_multichip(1)` on the card;
+13. leftovers — runs before 12. The patch-matmul descriptors
+             (`OrbConfig.patch_desc`) on bench frame 0 against the gather path
+             (the reference test's quality criterion) and bit-equal to the
+             CPU's; BoxLOG on a bench frame against the CPU; the prior-pose
+             initializer on the system fixture's initialization pair with the
+             ground-truth motion against the CPU (n_good, mask); the PLY
+             export of phase 5's map (vertices = valid points + keyframes,
+             edges = covisibility pairs ≥ 15) and an annotated frame; the
+             entry step (the kernel at 512×512); one probe round
+             (`loop_probe_floor` PROBE_FLOOR, two rounds so that the streak
+             reaches 2) for the keyframe that closed phase 7's loop and its
+             matched keyframe, on the map and database its closing
+             verification read (by the run's end both keyframes are culled),
+             n_bow ≥ PROBE_FLOOR and the funnel against the CPU port's on a
+             copy with the same Sim3 samples; every
+             texture style and a few frames along `revisit_trajectory`;
 12. profile — the profiler's device duration of both kernels at 4096×800, a
              cross-check of phase 3's graph times, the kernel launches of
              the last local-map call of each mode's run (subset: phase 5's),
@@ -113,14 +154,14 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              profiler ran. It comes last, so that the profiler
              cannot slow the host's launches in the timed phases.
 
-Each path phase (4-7, 9, 10) sets the kernel's launch counts to 0 just before it
+Each path phase (4-7, 9, 10, 10b, 10c, 13) sets the kernel's launch counts to 0 just before it
 drives the path and reads them just after. Then the kernel's launches by
 shape, the seconds each phase took, the kernel table line and, last,
 {"ok": true, "device": {...}}. The
-fixtures (gf_orb_slam_tpu_torch/data/track_fixture.npz, place_fixture.npz
-and gf_modes_fixture.npz) are written from the JAX reference by
-tools/make_torch_fixture.py, tools/make_torch_place_fixture.py and
-tools/make_torch_gf_modes_fixture.py.
+fixtures (gf_orb_slam_tpu_torch/data/track_fixture.npz, place_fixture.npz,
+gf_modes_fixture.npz and leftovers_fixture.npz) are written from the JAX
+reference by tools/make_torch_fixture.py, tools/make_torch_place_fixture.py,
+tools/make_torch_gf_modes_fixture.py and tools/make_torch_leftovers_fixture.py.
 """
 
 from __future__ import annotations
@@ -143,8 +184,10 @@ GF_MODES_FIXTURE = os.path.join(REPO, "gf_orb_slam_tpu_torch", "data", "gf_modes
 # Phase 9's modes, in the order they run (the fixture sets each one's frames).
 GF_MODES = ("active", "hybrid", "lazier", "auto", "random", "longlive")
 # Tracking (4096×800, 800×800, 1600×800), bootstrap and triangulation
-# (1600×1600), fusion (2048×1600), relocalization (800×1600), SearchAndFuse (4800×1600).
-TIMED_SHAPES = [(4096, 800), (800, 800), (1600, 800), (1600, 1600), (2048, 1600), (800, 1600), (4800, 1600)]
+# (1600×1600), fusion (2048×1600), relocalization (800×1600), SearchAndFuse
+# (4800×1600), the entry step (512×512).
+TIMED_SHAPES = [(4096, 800), (800, 800), (1600, 800), (1600, 1600), (2048, 1600), (800, 1600), (4800, 1600),
+                (512, 512)]
 KERNEL_SHAPES = TIMED_SHAPES + [(1000, 777), (1, 1), (0, 8), (8, 0)]
 # Kernel timing.
 GRAPH_REPS = 50             # kernel launches captured in one CUDA graph
@@ -165,12 +208,19 @@ KF_SHARE = 0.25            # keyframes inserted within ±25% of the reference's
 ATE_FACTOR = 2.0           # ATE ≤ 2× the reference's
 MIN_INSERT_LAUNCHES = 4    # Hamming launches inside every insertion
 SELECTION_REPS = 5         # phase 9: local-map tracking re-runs, GF on and off in turns
-GF_MODE_FRAMES = 120       # phase 9: frames per mode (a cut of length; the time limit)
+GF_MODE_FRAMES = 60        # phase 9: frames per mode (a cut of length; the time limit)
 SYSTEM_FIXTURE = os.path.join(REPO, "gf_orb_slam_tpu_torch", "data", "system_fixture.npz")
 DATASET_FRAMES = (60, 30)  # phase 10: the bench frames of the saved run, then of the resumed one
 RESUME_WITHIN = 5          # the resumed run is WORKING within its first frames
 GBA_COST_FACTOR = 1.05     # phase 11: cost ≤ this × the Schur solver's
-GBA_ATE_FACTOR = 1.1       # keyframe ATE ≤ this × the map's before global BA
+GBA_ATE_FACTOR = 1.1       # converged solves: keyframe ATE ≤ this × the Schur solver's
+GBA_CONVERGED = ((40, 100), (5, 40))  # the converged solves: distributed LM × PCG, Schur stage LM iterations
+LEFTOVERS_FIXTURE = os.path.join(REPO, "gf_orb_slam_tpu_torch", "data", "leftovers_fixture.npz")
+EPISODE_SLACK = 12         # phase 7: frames by which a closed episode may move (two keyframe cadences)
+BENCH_FRAMES = 96          # the bench: 24 warm-up + 6 windows of 12 frames (a cut of length; the time limit)
+SWEEP_ARGS = ["--synthetic", "60", "--budgets", "0", "100", "--rounds", "1"]  # GF on from ~frame 45
+PROBE_FLOOR = 8            # phase 13: the probe's Sim3-RANSAC floor
+FUNNEL_TOL = (3, 0.02)     # phase 13: card vs CPU RANSAC / guided / refined counts within max(3, 2%)
 
 
 def emit(obj) -> None:
@@ -659,7 +709,8 @@ def main() -> int:
 
     # --- 8. where a place-recognition frame's time goes ---
     emit(breakdown_phase(runs) | {"device": kind, "nvidia_smi": smi})
-    loop = {k: runs["loop"][k] for k in ("system", "ts", "poses_gt")}  # phase 11's map
+    loop = {k: runs["loop"][k] for k in ("system", "ts", "poses_gt", "closing_verify")}  # phases 11 and 13
+    system_run = {"system": runs["system"]["system"]}  # phase 13's viz map
     del runs
     lap("breakdown")
 
@@ -676,9 +727,23 @@ def main() -> int:
     path_recs["dataset"] = rec
     lap("dataset")
 
+    # --- 10b-10c. the bench and the budget sweep ---
+    for name, fn in (("bench", lambda: run_bench_phase(dev, voc, smi)), ("sweep", lambda: run_sweep_phase(dev))):
+        rec = fn() | {"device": kind, "nvidia_smi": smi}
+        emit(rec)
+        path_recs[name] = rec
+        lap(name)
+
     # --- 11. global BA of the room circuit's map on an NCCL group ---
     emit(run_global_ba_phase(dev, loop) | {"device": kind, "nvidia_smi": smi})
     lap("global_ba")
+
+    # --- 13. the modules no other phase drives ---
+    rec = run_leftovers_phase(dev, system_run, loop) | {"device": kind, "nvidia_smi": smi}
+    emit(rec)
+    path_recs["leftovers"] = rec
+    del system_run
+    lap("leftovers")
 
     # --- 12. the profiler's cross-check, after every timed phase ---
     emit(profile_phase(dev, gf_runs, loop) | {"device": kind, "nvidia_smi": smi})
@@ -750,7 +815,7 @@ RECORDED = {
 TRACKING_CALLS = ("step", "local_map")
 
 
-def drive_system(dev, cam, cfg, ts, poses_gt, frames, voc, seed: int) -> dict:
+def drive_system(dev, cam, cfg, ts, poses_gt, frames, voc, seed: int, loop_gt_overlap=None) -> dict:
     """run_slam.run_sequence on the card with every launch, host sync,
     insertion, BoW registration, relocalization and loop verification /
     correction recorded; the arguments of each one's last call are kept for
@@ -768,6 +833,7 @@ def drive_system(dev, cam, cfg, ts, poses_gt, frames, voc, seed: int) -> dict:
     originals = {name: getattr(modules[name], attr) for name, (_, attr, _) in RECORDED.items()}
     calls: dict[str, list] = {k: [] for k in RECORDED}
     last_args: dict[str, tuple] = {}
+    closing: dict[str, tuple] = {}  # the verification that preceded the last correction
     per_frame_ms, syncs, states = [], [], []
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -789,6 +855,8 @@ def drive_system(dev, cam, cfg, ts, poses_gt, frames, voc, seed: int) -> dict:
                 calls[name].append({"frame": len(per_frame_ms), "launches": hamming.LAUNCHES - before,
                                     "by_shape": hamming.LAUNCHES_BY_SHAPE - shapes_before,
                                     "syncs": n_syncs() - s0, "ms": (time.perf_counter() - t0) * 1e3})
+                if name == "correct":
+                    closing["verify"] = last_args["verify"]
                 last_args[name] = (a, kw)
                 return out
             return call
@@ -808,14 +876,15 @@ def drive_system(dev, cam, cfg, ts, poses_gt, frames, voc, seed: int) -> dict:
         try:
             t0 = time.perf_counter()
             system, result = run_slam.run_sequence(cam, cfg, ts, poses_gt, frames, dev, seed=seed,
-                                                   on_frame=on_frame, vocabulary=voc)
+                                                   on_frame=on_frame, vocabulary=voc, loop_gt_overlap=loop_gt_overlap)
             run_s = time.perf_counter() - t0
         finally:
             torch.cuda.set_sync_debug_mode("default")
             for name, (_, attr, _) in RECORDED.items():
                 setattr(modules[name], attr, originals[name])
     return {"system": system, "result": result, "run_s": run_s, "per_frame_ms": per_frame_ms, "syncs": syncs,
-            "states": states, "calls": calls, "last_args": last_args, "originals": originals,
+            "states": states, "calls": calls, "last_args": last_args, "closing_verify": closing.get("verify"),
+            "originals": originals,
             "launches": hamming.LAUNCHES, "by_shape": collections.Counter(hamming.LAUNCHES_BY_SHAPE),
             "peak_mib": torch.cuda.max_memory_allocated() / 2**20, "allocated_mib": allocated_mib}
 
@@ -1014,7 +1083,7 @@ def run_system_phase(dev, voc):
         bad.append(f"{rec['loops_closed']} loops closed (reference {ref['loops_closed']})")
     if bad:
         raise AssertionError("system phase outside its gates: " + "; ".join(bad) + f" — {short(rec)}")
-    return rec, {k: run[k] for k in ("last_args", "originals")}
+    return rec, {k: run[k] for k in ("last_args", "originals", "system")}
 
 
 def run_relocalization_phase(dev, voc):
@@ -1065,17 +1134,38 @@ def run_loop_phase(dev, voc):
 
     from gf_orb_slam_tpu_torch import run_slam
     from gf_orb_slam_tpu_torch.geometry.camera import EUROC_CAM
+    from gf_orb_slam_tpu_torch.io_utils import loop_eval
 
     meta, z = load_place_fixture("room")
+    meta_r, z_r = load_place_fixture("room", LEFTOVERS_FIXTURE)
     ref = meta["summary"]
     F = meta["frames"]
     t0 = time.perf_counter()
     ts, poses_gt, frames = run_slam.render_sequence(EUROC_CAM, F, meta["scene_seed"], dev, scene="room")
     torch.cuda.synchronize()
     render_s = time.perf_counter() - t0
-    run = drive_system(dev, EUROC_CAM, run_slam.room_config(), ts, poses_gt, frames, voc, seed=0)
+    gt_overlap = loop_eval.circuit_gt_overlap(F, run_slam.circuit_revs(F))
+    run = drive_system(dev, EUROC_CAM, run_slam.room_config(), ts, poses_gt, frames, voc, seed=0,
+                       loop_gt_overlap=gt_overlap)
     rec = {"phase": "loop", "entry": "pipeline.system.SlamSystem.process", "render_seconds": render_s,
            **run_record(run, F)}
+    # Recall against the reference's events on the same frames.
+    system = run["system"]
+    events, ref_events = system.loop_events, loop_eval.events_from_array(z_r["loop_events"])
+    recall = loop_eval.recall_summary(events, system.map.kf_frame_id.cpu().numpy(), gt_overlap)
+    spans = [{"frames": [min(e["frames"]), max(e["frames"])], "closed": e["closed"]} for e in loop_eval.episodes(events)]
+    missed = loop_eval.closed_episodes_missed(ref_events, events, EPISODE_SLACK)
+    rec.update({"recall": recall, "episodes": spans, "ref_recall": meta_r["recall"],
+                "ref_episodes": [{"frames": [min(e["frames"]), max(e["frames"])], "closed": e["closed"]}
+                                 for e in meta_r["episodes"]],
+                "matched_kf": [{"kf": e["kf"], "frame": e["frame"], "matched_kf": e["matched_kf"]}
+                               for e in events if e["closed"]],
+                "ref_closed_episodes_missed": missed})
+    loop_frames = {r["frame"] for name in ("verify", "correct") for r in run["calls"][name]}
+    rec["host_syncs_per_tracked_frame_without_loop_work"] = sorted(
+        {run["syncs"][i] for i, (st, ins, has) in enumerate(run["states"]) if has and not ins and i not in loop_frames})
+    rec["host_syncs_per_insert_frame_without_loop_work"] = sorted(
+        {run["syncs"][i] for i, (st, ins, has) in enumerate(run["states"]) if ins and i not in loop_frames})
     loops = run["calls"]["correct"]
     rec.update({"ref_tracked": ref["tracked"], "ref_loops_closed": ref["loops_closed"],
                 "ref_loops": z["loops"].tolist(), "ref_ate_rmse_m": ref["ate_rmse_m"],
@@ -1094,9 +1184,20 @@ def run_loop_phase(dev, voc):
         bad.append(f"no loop closed (reference {ref['loops_closed']})")
     if rec["ate_rmse_m"] is None or rec["ate_rmse_m"] > ATE_FACTOR * ref["ate_rmse_m"]:
         bad.append(f"ATE {rec['ate_rmse_m']} m (reference {ref['ate_rmse_m']} m)")
+    if abs(recall["episodes"] - meta_r["recall"]["episodes"]) > 1:
+        bad.append(f"{recall['episodes']} revisit episodes (reference {meta_r['recall']['episodes']})")
+    if missed:
+        bad.append(f"the reference's closed episodes at frames {missed} were not closed")
+    if recall["false_closures"]:
+        bad.append(f"{recall['false_closures']} false closures")
+    if (rec["host_syncs_per_tracked_frame_without_loop_work"] != [2]
+            or rec["host_syncs_per_insert_frame_without_loop_work"] != [3]):
+        bad.append(f"host syncs {rec['host_syncs_per_tracked_frame_without_loop_work']} per tracked frame and "
+                   f"{rec['host_syncs_per_insert_frame_without_loop_work']} per insertion frame (expected 2 and 3)")
     if bad:
         raise AssertionError("loop phase outside its gates: " + "; ".join(bad) + f" — {short(rec)}")
-    return rec, {k: run[k] for k in ("last_args", "originals", "system")} | {"ts": ts, "poses_gt": poses_gt}
+    return rec, {k: run[k] for k in ("last_args", "originals", "system", "closing_verify")} | {"ts": ts,
+                                                                                              "poses_gt": poses_gt}
 
 
 def reference_prefix(z: dict, poses_gt, F: int) -> dict:
@@ -1301,6 +1402,315 @@ def run_dataset_phase(dev) -> dict:
     return rec
 
 
+def trajectory_ate(system, ts, poses_gt) -> float | None:
+    """ATE of a system's tracked poses against the ground truth at their
+    timestamps (None below 11 tracked frames, as run_sequence reports it)."""
+    import numpy as np
+
+    from gf_orb_slam_tpu_torch import run_slam
+    from gf_orb_slam_tpu_torch.io_utils import evaluation
+
+    est_ts, est = system.get_trajectory()
+    if len(est) <= 10:
+        return None
+    gt_by_t = {round(float(t), 6): c for t, c in zip(ts, run_slam.camera_centers(poses_gt))}
+    return evaluation.ate_rmse(run_slam.camera_centers(est), np.stack([gt_by_t[round(float(t), 6)] for t in est_ts]))
+
+
+def run_bench_phase(dev, voc, smi: str) -> dict:
+    """Phase 10b: the port's bench over the bench's first BENCH_FRAMES
+    frames; both systems held to the reference's runs over the same frames.
+    Raises on any gate."""
+    import torch
+
+    from gf_orb_slam_tpu_torch import bench, run_slam
+    from gf_orb_slam_tpu_torch.kernels import hamming
+
+    meta, z_on = load_place_fixture("bench")
+    _, z_off = load_place_fixture("bench_gf_off", LEFTOVERS_FIXTURE)
+    cam, ts, poses_gt, frames = bench_sequence(dev, meta)
+    F = BENCH_FRAMES
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    line, on, off = bench.run_bench(cam, run_slam.bench_config(), ts[:F], frames[:F], voc, dev)
+    torch.cuda.synchronize()
+    rec = {"phase": "bench", "entry": "gf_orb_slam_tpu_torch.bench.run_bench", "frames": F,
+           "cut": f"the bench's 240 frames cut to {F} (warm-up {bench.WARMUP}, windows of {bench.WINDOW}): the time limit",
+           "seconds": time.perf_counter() - t0, "line": line, "nvidia_smi": smi,
+           "hamming_launches": hamming.LAUNCHES,
+           "hamming_launches_by_shape": {f"{nq}x{nt}": n for (nq, nt), n in sorted(hamming.LAUNCHES_BY_SHAPE.items())}}
+    print(json.dumps(line), flush=True)
+    d = line["detail"]
+    bad = [f"{k} = {v} is not a finite rate" for k, v in (("value", line["value"]), ("gf_off_fps", d["gf_off_fps"]),
+                                                           ("device_only_fps", d["device_only_fps"]))
+           if not (math.isfinite(v) and v > 0)]
+    for name, system, z in (("gf_on", on, z_on), ("gf_off", off, z_off)):
+        ref = reference_prefix(z, poses_gt, F)
+        got = {"tracked": len(system.trajectory), "keyframes": system.n_kf, "ate_rmse_m": trajectory_ate(system, ts, poses_gt),
+               "ref_tracked": ref["tracked"], "ref_ate_rmse_m": ref["ate_rmse_m"]}
+        rec[name] = got
+        if got["tracked"] < TRACKED_SHARE * ref["tracked"]:
+            bad.append(f"{name}: tracked {got['tracked']} of {F} (reference {ref['tracked']})")
+        if got["ate_rmse_m"] is None or got["ate_rmse_m"] > ATE_FACTOR * ref["ate_rmse_m"]:
+            bad.append(f"{name}: ATE {got['ate_rmse_m']} m (reference {ref['ate_rmse_m']} m)")
+    if bad:
+        raise AssertionError("bench phase outside its gates: " + "; ".join(bad) + f" — {rec}")
+    return rec
+
+
+def run_sweep_phase(dev) -> dict:
+    """Phase 10c: the port's budget sweep on the card, each row held to the
+    reference's. Raises on any gate."""
+    import tempfile
+
+    import numpy as np
+
+    from gf_orb_slam_tpu_torch import batch_sweep
+    from gf_orb_slam_tpu_torch.kernels import hamming
+
+    with np.load(LEFTOVERS_FIXTURE) as zf:
+        ref_meta = json.loads(str(zf["sweep_meta"]))
+    if ref_meta["args"][:-1] != SWEEP_ARGS:  # the reference ran with --cpu
+        raise AssertionError(f"the reference sweep ran {ref_meta['args']}, this phase runs {SWEEP_ARGS}")
+    ref_rows = {(r["budget"], r["round"]): r for r in ref_meta["rows"]}
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sweep_") as tmp:
+        out = batch_sweep.main([*SWEEP_ARGS, "--device", dev.type, "--out-dir", tmp])
+    keep = ("budget", "round", "frames", "tracked", "keyframes", "map_points", "loops_closed", "ate_rmse_m")
+    rows = [{k: r.get(k) for k in keep} | {"track_median_ms": r["timing"]["total"]["median_ms"],
+                                           "device_stages_ms": r.get("device_stages_ms")} for r in out["runs"]]
+    rec = {"phase": "sweep", "entry": "gf_orb_slam_tpu_torch.batch_sweep.main", "args": SWEEP_ARGS,
+           "seconds": time.perf_counter() - t0, "rows": rows, "cells": out["cells"], "ref_rows": ref_meta["rows"],
+           "hamming_launches": hamming.LAUNCHES,
+           "hamming_launches_by_shape": {f"{nq}x{nt}": n for (nq, nt), n in sorted(hamming.LAUNCHES_BY_SHAPE.items())}}
+    bad = []
+    if sorted((r["budget"], r["round"]) for r in rows) != sorted(ref_rows):
+        bad.append(f"rows {[(r['budget'], r['round']) for r in rows]} (reference {sorted(ref_rows)})")
+    for r in rows:
+        ref = ref_rows.get((r["budget"], r["round"]))
+        if ref is None:
+            continue
+        if r["tracked"] < TRACKED_SHARE * ref["tracked"]:
+            bad.append(f"budget {r['budget']}: tracked {r['tracked']} (reference {ref['tracked']})")
+        if r["ate_rmse_m"] is None or r["ate_rmse_m"] > ATE_FACTOR * ref["ate_rmse_m"]:
+            bad.append(f"budget {r['budget']}: ATE {r['ate_rmse_m']} m (reference {ref['ate_rmse_m']} m)")
+    # The budget reaches the run: where the reference's two budgets part,
+    # the port's must part too (GF on after its 40-frame warm-up).
+    ate = {r["budget"]: r["ate_rmse_m"] for r in rows if r["round"] == 0}
+    ref_ate = {b: r["ate_rmse_m"] for (b, rnd), r in ref_rows.items() if rnd == 0}
+    if len(set(ref_ate.values())) > 1 and len(set(ate.values())) < len(ate):
+        bad.append(f"the budgets' runs are identical (ATE {ate}; reference {ref_ate})")
+    if bad:
+        raise AssertionError("sweep phase outside its gates: " + "; ".join(bad) + f" — {rec}")
+    return rec
+
+
+def probe_round(room, closing: tuple, device) -> list:
+    """The gate records of two loop rounds in probe mode (the streak
+    reaches 2, so the candidate is shadow-verified) for the query and
+    candidate of the verification that closed the room's loop, on copies of
+    the map and database that verification read, on `device`. The Sim3
+    RANSAC uniforms come from a CPU generator seeded 0, so both devices draw
+    the same samples from the same valid slots."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from gf_orb_slam_tpu_torch.mapping import map_state as ms
+    from gf_orb_slam_tpu_torch.ops.fast import top_k_stable
+    from gf_orb_slam_tpu_torch.pipeline import system as system_mod
+    from gf_orb_slam_tpu_torch.retrieval import keyframe_db as kdb
+    from gf_orb_slam_tpu_torch.solvers import sim3_solver
+
+    (_, m, db, q, c, _), _ = closing
+    q, c = int(q), int(c)
+    s = system_mod.SlamSystem(room.cam, dataclasses.replace(room.cfg, loop_probe_floor=PROBE_FLOOR), device=device)
+    s.map = ms.MapState(*(t.to(device, copy=True) for t in m))
+    s.voc = room.voc.to(device)
+    s.bow_db = kdb.BowDatabase(*(t.to(device, copy=True) for t in db))
+    s.loop_gt_overlap = room.loop_gt_overlap
+    W = ms.covisibility(s.map)
+    Wn = W.cpu().numpy()
+    p = {"kf": q, "cand": np.asarray([c], np.int32), "ok": np.asarray([True]), "covis_c": Wn[[c]], "covis": W,
+         "covis_q": Wn[q], "kf_frame_id": s.map.kf_frame_id.cpu().numpy(), "kf_valid": s.map.kf_valid.cpu().numpy()}
+    gen = torch.Generator().manual_seed(0)
+
+    def same_draw(valid, n_hypotheses, generator):
+        u = torch.rand((n_hypotheses, valid.shape[0]), generator=gen).to(valid.device)
+        return top_k_stable(-torch.log(-torch.log(u)) + torch.where(valid, 0.0, -1e9), 3)[1]
+
+    draw = sim3_solver.sample_sim3
+    sim3_solver.sample_sim3 = same_draw
+    try:
+        for _ in range(2):
+            s._try_close_loop(dict(p))
+    finally:
+        sim3_solver.sample_sim3 = draw
+    return s.loop_gate_events
+
+
+def run_leftovers_phase(dev, system_run: dict, loop: dict) -> dict:
+    """Phase 13: the modules no other phase drives, each on the card and
+    held against the CPU port or its own criterion. Raises on any gate."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from gf_orb_slam_tpu_torch import entry
+    from gf_orb_slam_tpu_torch.geometry import se3
+    from gf_orb_slam_tpu_torch.io_utils import synthetic, viz
+    from gf_orb_slam_tpu_torch.kernels import hamming
+    from gf_orb_slam_tpu_torch.mapping import map_state as ms
+    from gf_orb_slam_tpu_torch.ops import boxlog, matching, orb
+    from gf_orb_slam_tpu_torch.solvers import initializer
+
+    meta, _ = load_place_fixture("bench")
+    cam, _, _, frames = bench_sequence(dev, meta)
+    rec, bad, secs = {"phase": "leftovers"}, [], {}
+    reset_launch_counts()
+    t_all = time.perf_counter()
+
+    # The patch-matmul path: the gather path's keypoints, the reference
+    # test's quality criterion against its descriptors, and the CPU's bits.
+    t0 = time.perf_counter()
+    img = frames[0]
+    kp = orb.extract_orb(img, orb.OrbConfig(patch_desc=True))
+    kg = orb.extract_orb(img, orb.OrbConfig())
+    kc = orb.extract_orb(img.cpu(), orb.OrbConfig(patch_desc=True))
+    kp, kg = (orb.Keypoints(*(x.cpu() for x in k)) for k in (kp, kg))
+    v = kp.valid & kg.valid
+    dist = torch.diagonal(matching.hamming_matrix_torch(kp.desc, kg.desc))[v].numpy()
+    same_bin = (orb.angle_bins(kp.angle) == orb.angle_bins(kg.angle))[v].numpy()
+    same = (kp.uv == kc.uv).all(dim=1) & kp.valid & kc.valid
+    rec["patch_desc"] = {
+        "valid": int(kp.valid.sum()), "uv_equal_to_gather": bool(torch.equal(kp.uv[v], kg.uv[v])),
+        "same_bin_share": float(same_bin.mean()), "same_bin_median_bits": float(np.median(dist[same_bin])),
+        "same_bin_mean_bits": float(dist[same_bin].mean()), "keypoints_equal_to_cpu": int(same.sum()),
+        "desc_bit_equal_to_cpu": bool(torch.equal(kp.desc[same], kc.desc[same])),
+        "max_angle_diff_to_cpu": float((kp.angle - kc.angle)[same].abs().max())}
+    r = rec["patch_desc"]
+    if not (r["uv_equal_to_gather"] and r["same_bin_share"] > 0.5 and r["same_bin_median_bits"] <= 12
+            and r["same_bin_mean_bits"] < 32):
+        bad.append(f"patch descriptors against the gather path: {r}")
+    if not (r["desc_bit_equal_to_cpu"] and r["keypoints_equal_to_cpu"] >= 0.98 * int(kc.valid.sum())
+            and r["max_angle_diff_to_cpu"] <= 1e-5):
+        bad.append(f"patch descriptors against the CPU: {r}")
+    secs["patch_desc"] = time.perf_counter() - t0
+
+    # BoxLOG against the CPU.
+    t0 = time.perf_counter()
+    xg, vg, okg = (a.cpu() for a in boxlog.detect_blobs(frames[7], n_keep=400))
+    xc, vc, okc = boxlog.detect_blobs(frames[7].cpu(), n_keep=400)
+    tol = 1e-4 * float(vc.max())
+    differ = ~(xg == xc).all(dim=1)
+    ties = all(int(((vc - vc[i]).abs() <= 2 * tol).sum()) >= 2 for i in torch.nonzero(differ).flatten().tolist())
+    rec["boxlog"] = {"valid": int(okg.sum()), "max_response_diff": float((vg - vc).abs().max()), "tolerance": tol,
+                     "positions_differing": int(differ.sum()), "differing_are_ties": ties}
+    if not (torch.equal(okg, okc) and rec["boxlog"]["max_response_diff"] <= tol and ties
+            and differ.float().mean() <= 0.05):
+        bad.append(f"BoxLOG against the CPU: {rec['boxlog']}")
+    secs["boxlog"] = time.perf_counter() - t0
+
+    # The prior-pose initializer on the recorded initialization pair (frames
+    # 0 and 4) with the ground-truth motion, against the CPU.
+    t0 = time.perf_counter()
+    with np.load(SYSTEM_FIXTURE) as zf:
+        pair = {k: torch.from_numpy(zf[k]) for k in ("init_uv1", "init_uv2", "init_matched", "gt_pose")}
+    pose21 = se3.relative(pair["gt_pose"][4], pair["gt_pose"][0])
+    args = (pair["init_uv1"], pair["init_uv2"], pair["init_matched"], pose21)
+    want = initializer.initialize_with_prior(cam, *args)
+    got = initializer.initialize_with_prior(cam, *(a.to(dev) for a in args))
+    rec["initialize_with_prior"] = {"n_good": int(got.n_good), "cpu_n_good": int(want.n_good),
+                                    "success": bool(got.success), "matched": int(pair["init_matched"].sum()),
+                                    "mask_equal": bool(torch.equal(got.is_triangulated.cpu(), want.is_triangulated))}
+    r = rec["initialize_with_prior"]
+    if not (r["n_good"] == r["cpu_n_good"] and r["mask_equal"] and r["success"]):
+        bad.append(f"initialize_with_prior against the CPU: {r}")
+    secs["initialize_with_prior"] = time.perf_counter() - t0
+
+    # The viz exports of phase 5's final map.
+    t0 = time.perf_counter()
+    system = system_run["system"]
+    m = system.map
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ply_") as tmp:
+        path = os.path.join(tmp, "map.ply")
+        viz.export_map_ply(path, m)
+        text = open(path).read().splitlines()
+    head = text.index("end_header")
+    n_v = int(next(ln for ln in text if ln.startswith("element vertex")).split()[-1])
+    n_e = int(next(ln for ln in text if ln.startswith("element edge")).split()[-1])
+    kf_valid = m.kf_valid.cpu().numpy()
+    W = ms.covisibility(m).cpu().numpy()[np.ix_(kf_valid, kf_valid)]
+    want_v, want_e = int(m.pt_valid.sum()) + int(kf_valid.sum()), int((np.triu(W, k=1) >= 15).sum())
+    rgb = viz.annotate_frame(frames[-1].cpu().numpy(), system.last_frame.uv.cpu().numpy(),
+                             (system.last_obs >= 0).cpu().numpy())
+    green = int(((rgb[..., 0] == 0) & (rgb[..., 1] == 255) & (rgb[..., 2] == 0)).sum())
+    rec["viz"] = {"vertices": n_v, "edges": n_e, "expected_vertices": want_v, "expected_edges": want_e,
+                  "lines": len(text) - head - 1, "annotated_shape": list(rgb.shape), "green_pixels": green}
+    if not (n_v == want_v and n_e == want_e and len(text) - head - 1 == n_v + n_e and rgb.dtype == np.uint8
+            and rgb.shape == (*frames.shape[1:], 3) and green > 0):
+        bad.append(f"viz exports: {rec['viz']}")
+    secs["viz"] = time.perf_counter() - t0
+
+    # The entry step (the kernel at 512×512).
+    t0 = time.perf_counter()
+    fn, eargs = entry.entry(dev)
+    pose, n_inliers, logdet = fn(*eargs)
+    torch.cuda.synchronize()
+    rec["entry"] = {"pose": pose.cpu().tolist(), "n_inliers": int(n_inliers), "logdet": float(logdet),
+                    "launches_512x512": hamming.LAUNCHES_BY_SHAPE[(512, 512)]}
+    if not (bool(torch.isfinite(pose).all()) and math.isfinite(float(logdet)) and int(n_inliers) > 10
+            and rec["entry"]["launches_512x512"] >= 1):
+        bad.append(f"entry step: {rec['entry']}")
+    secs["entry"] = time.perf_counter() - t0
+
+    # One probe round on the map phase 7's closing verification read (by
+    # the run's end keyframe culling has removed its query and candidate),
+    # against the CPU port.
+    t0 = time.perf_counter()
+    room, closing = loop["system"], loop["closing_verify"]
+    closed = [e for e in room.loop_events if e["closed"]]
+    if not closed or closing is None:
+        bad.append("phase 7 closed no loop to probe")
+    else:
+        got, want = probe_round(room, closing, dev), probe_round(room, closing, torch.device("cpu"))
+        rec["probe"] = {"query_kf": int(closing[0][3]), "candidate_kf": int(closing[0][4]),
+                        "closed_event": closed[-1], "gate_events": got, "cpu_gate_events": want}
+        ok = (len(got) == len(want) == 3 and "cand" in got[-1] and got[-1]["n_bow"] >= PROBE_FLOOR
+              and (got[-1]["kf"], got[-1]["cand"]) == (closed[-1]["kf"], closed[-1]["matched_kf"]))
+        for g, w in zip(got, want):
+            ok &= set(g) == set(w) and all(g[k] == w[k] for k in w if k not in ("n_ransac", "n_guided", "n_opt"))
+            ok &= all(abs(g[k] - w[k]) <= max(FUNNEL_TOL[0], FUNNEL_TOL[1] * w[k])
+                      for k in ("n_ransac", "n_guided", "n_opt") if k in w)
+        if not ok:
+            bad.append(f"probe round against the CPU: {rec['probe']}")
+    secs["probe"] = time.perf_counter() - t0
+
+    # Every texture style, and a few frames along the revisit trajectory.
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    tex = {st: synthetic.varied_texture(rng, 256, st) for st in synthetic.TEXTURE_STYLES}
+    _, poses = synthetic.revisit_trajectory(60, fps=cam.fps)
+    scene = synthetic.make_scene(seed=0, device=dev)
+    views = torch.stack([synthetic.render(scene, cam, torch.from_numpy(poses[i])) for i in (0, 15, 30, 45)])
+    rec["synthetic"] = {"textures": {st: [float(t.min()), float(t.max()), float(t.std())] for st, t in tex.items()},
+                        "revisit_frames": list(views.shape), "revisit_mean": views.mean(dim=(1, 2)).cpu().tolist()}
+    if not (all(t.shape == (256, 256) and t.dtype == np.float32 and 0 <= t.min() and t.max() <= 255 and t.std() > 1
+                for t in tex.values()) and bool(torch.isfinite(views).all())
+            and views.shape == (4, cam.height, cam.width) and float(views.std()) > 1):
+        bad.append(f"synthetic: {rec['synthetic']}")
+    secs["synthetic"] = time.perf_counter() - t0
+
+    rec.update({"seconds": time.perf_counter() - t_all, "seconds_by_check": secs, "hamming_launches": hamming.LAUNCHES,
+                "hamming_launches_by_shape": {f"{nq}x{nt}": n for (nq, nt), n in sorted(hamming.LAUNCHES_BY_SHAPE.items())}})
+    if bad:
+        raise AssertionError("leftovers phase outside its gates: " + "; ".join(bad))
+    return rec
+
+
 def global_ba_problem(loop: dict):
     """(problem, keyframe ids, camera) of global BA over phase 7's map:
     every valid keyframe, the first fixed."""
@@ -1372,6 +1782,12 @@ def run_global_ba_phase(dev, loop: dict) -> dict:
             for n in names:
                 setattr(dist, n, originals[n])
         rec["peak_memory_mib"] = torch.cuda.max_memory_allocated() / 2**20 - base_mib
+        # Ground truth: the room map's BA cost is flat to 0.1% along moves of
+        # centimetres (ROADMAP C4), so only converged solves land where the
+        # ground truth can tell the two solvers apart.
+        (lm, pcg), (s1, s2) = GBA_CONVERGED
+        conv = global_ba.gather_result(global_ba.distributed_bundle_adjust(cam, prob, group, lm, pcg), len(ids),
+                                       group)
         torch.cuda.set_sync_debug_mode("error")
         try:
             again = global_ba.distributed_bundle_adjust(cam, prob, group)
@@ -1388,12 +1804,18 @@ def run_global_ba_phase(dev, loop: dict) -> dict:
     torch.cuda.synchronize()
     rec["schur_ms"] = (time.perf_counter() - t0) * 1e3
     rec["schur_peak_memory_mib"] = torch.cuda.max_memory_allocated() / 2**20 - base_mib
+    schur_conv = local_ba.bundle_adjust(cam, prob, iters_stage1=s1, iters_stage2=s2)
     fixed = prob.fixed
-    finite = all(bool(torch.isfinite(t).all()) for t in (res.poses, res.points, res.cost))
+    finite = all(bool(torch.isfinite(t).all()) for t in (res.poses, res.points, res.cost, conv.poses, conv.points))
     rec.update({
         "final_cost": cost(res.poses, res.points), "reported_cost": float(res.cost),
         "schur_cost": cost(schur.poses, schur.points), "final_keyframe_ate_m": keyframe_ate(res.poses, ids, loop),
         "schur_keyframe_ate_m": keyframe_ate(schur.poses, ids, loop), "finite": finite,
+        "converged": {"distributed_lm_pcg": [lm, pcg], "schur_lm": [s1, s2],
+                      "distributed_cost": cost(conv.poses, conv.points),
+                      "distributed_keyframe_ate_m": keyframe_ate(conv.poses, ids, loop),
+                      "schur_cost": cost(schur_conv.poses, schur_conv.points),
+                      "schur_keyframe_ate_m": keyframe_ate(schur_conv.poses, ids, loop)},
         "fixed_bit_equal": bool(torch.equal(res.poses[fixed], prob.poses[fixed])),
         "repeat_max_abs_pose_diff": float((again.poses - res.poses).abs().max()),
         "obs_active_share": float(res.obs_active.float().mean()),
@@ -1408,9 +1830,10 @@ def run_global_ba_phase(dev, loop: dict) -> dict:
         bad.append(f"cost rose from {rec['initial_cost']} to {rec['final_cost']}")
     if not rec["final_cost"] <= GBA_COST_FACTOR * rec["schur_cost"]:
         bad.append(f"cost {rec['final_cost']} > {GBA_COST_FACTOR}× the Schur solver's {rec['schur_cost']}")
-    if not rec["final_keyframe_ate_m"] <= GBA_ATE_FACTOR * rec["initial_keyframe_ate_m"]:
-        bad.append(f"keyframe ATE {rec['final_keyframe_ate_m']} m > {GBA_ATE_FACTOR}× the map's "
-                   f"{rec['initial_keyframe_ate_m']} m")
+    conv_rec = rec["converged"]
+    if not conv_rec["distributed_keyframe_ate_m"] <= GBA_ATE_FACTOR * conv_rec["schur_keyframe_ate_m"]:
+        bad.append(f"converged keyframe ATE {conv_rec['distributed_keyframe_ate_m']} m > {GBA_ATE_FACTOR}× the "
+                   f"converged Schur solver's {conv_rec['schur_keyframe_ate_m']} m")
     if bad:
         raise AssertionError("global_ba phase outside its gates: " + "; ".join(bad) + f" — {rec}")
     return rec

@@ -4,15 +4,17 @@ The whole SLAM system — two-view initialization, per-frame tracking (ORB
 extraction → motion-model tracking → Good-Feature selection in every mode →
 local-map tracking), keyframe insertion with local mapping, place
 recognition (BoW retrieval, relocalization, Sim(3) loop closing), the
-system's state machine, distributed global bundle adjustment, and dataset,
-snapshot and vocabulary I/O — as plain functions on torch tensors, with the
+system's state machine with its loop-recall instrumentation, distributed
+global bundle adjustment, dataset, snapshot and vocabulary I/O, the viz
+exports, the bench, the GF-budget sweep and the entry point — as plain
+functions on torch tensors, with the
 Hamming distance matrix as a hand-written CUDA kernel for Hopper
 (kernels/hamming.py, csrc/hamming.cu). The JAX package is the reference each
 module is tested against; this package never imports it.
 
 Layout mirrors the reference:
   geometry/   quaternions, SE(3), Sim(3), pinhole camera, PWLS state, small linalg
-  ops/        pyramid, FAST, ORB, Hamming matching
+  ops/        pyramid, FAST, ORB (gather and patch-matmul paths), BoxLOG, Hamming matching
   kernels/    CUDA kernel wrappers and their nvcc build (sources in csrc/)
   gf/         measurement Jacobians, Max-logDet selections, active matching
   solvers/    pose-only LM, two-view initializer, Schur bundle adjustment,
@@ -23,8 +25,12 @@ Layout mirrors the reference:
   pipeline/   track view, per-frame tracking, local mapping, SlamSystem
   parallel/   keyframe-sharded global BA on torch.distributed, process groups
   io_utils/   datasets, images, settings, prefetch, map snapshots, the
-              synthetic scenes, evaluation, timing, the stage probe
+              synthetic scenes, evaluation, timing, the stage probe, viz,
+              loop-recall evaluation
   run_slam    the command line (python -m gf_orb_slam_tpu_torch.run_slam)
+  bench       the one-line throughput bench (python -m gf_orb_slam_tpu_torch.bench)
+  batch_sweep the GF-budget sweep (python -m gf_orb_slam_tpu_torch.batch_sweep)
+  entry       entry() → the GF tracking step and its inputs; dryrun_multichip
 
 Descriptors are (·, 8) int32 bit views of the reference's uint32 words.
 """

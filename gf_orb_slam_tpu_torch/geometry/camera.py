@@ -38,6 +38,16 @@ EUROC_CAM = CameraModel(
 )
 
 
+def distort_normalized(cam: CameraModel, xn: torch.Tensor) -> torch.Tensor:
+    """Apply radtan distortion to normalized coords (..., 2)."""
+    x, y = xn[..., 0], xn[..., 1]
+    r2 = x * x + y * y
+    radial = 1.0 + r2 * (cam.k1 + r2 * (cam.k2 + r2 * cam.k3))
+    xd = x * radial + 2.0 * cam.p1 * x * y + cam.p2 * (r2 + 2.0 * x * x)
+    yd = y * radial + cam.p1 * (r2 + 2.0 * y * y) + 2.0 * cam.p2 * x * y
+    return torch.stack([xd, yd], dim=-1)
+
+
 def undistort_normalized(cam: CameraModel, xd: torch.Tensor, iters: int = 8) -> torch.Tensor:
     """Invert radtan by fixed-point iteration (static iteration count)."""
     x = xd
@@ -74,6 +84,19 @@ def project(cam: CameraModel, xc: torch.Tensor, eps: float = 1e-6):
     xn = xc[..., :2] / z_safe[..., None]
     uv = normalized_to_pixel(cam, xn)
     return uv, z, z > eps
+
+
+def in_image(cam: CameraModel, uv: torch.Tensor, margin: float = 0.0) -> torch.Tensor:
+    return (
+        (uv[..., 0] >= -margin) & (uv[..., 0] < cam.width + margin)
+        & (uv[..., 1] >= -margin) & (uv[..., 1] < cam.height + margin)
+    )
+
+
+def backproject(cam: CameraModel, uv: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
+    """Undistorted pixels + depth → camera-frame 3D points."""
+    xn = pixel_to_normalized(cam, uv)
+    return torch.cat([xn * depth[..., None], depth[..., None]], dim=-1)
 
 
 def projection_jacobian(cam: CameraModel, xc: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -20,6 +20,13 @@ def logdet_psd(M: torch.Tensor, jitter: float = 0.0) -> torch.Tensor:
     return torch.where((info != 0) | torch.isnan(ld), -1e30, ld)
 
 
+def slogdet_general(M: torch.Tensor) -> torch.Tensor:
+    """log|det M| where det M > 0, else the −1e30 sentinel (for symmetric
+    but indefinite inputs)."""
+    sign, ld = torch.linalg.slogdet(M)
+    return torch.where(sign > 0, ld, -1e30)
+
+
 def solve_psd(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve A x = b for symmetric PD A (..., n, n), b (..., n) via Cholesky."""
     L, _ = torch.linalg.cholesky_ex(A)

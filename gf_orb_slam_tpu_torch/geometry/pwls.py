@@ -9,11 +9,20 @@ Rm(v2q(w·dt)) and F[3:7, 10:13] = L(q)·d(v2q(w·dt))/dw.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from gf_orb_slam_tpu_torch.geometry import quat, se3
 
 _EPS = 1e-6
+
+
+class KineState(NamedTuple):
+    """PWLS segment: state vector and segment duration (ref KineStruct)."""
+
+    Xv: torch.Tensor  # (13,) or batched (..., 13)
+    dt: torch.Tensor  # scalar or (...,)
 
 
 def state_from_pose_pair(

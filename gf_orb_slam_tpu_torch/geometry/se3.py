@@ -30,6 +30,11 @@ def pose_matrix(p: torch.Tensor) -> torch.Tensor:
     return torch.cat([top, bottom], dim=-2)
 
 
+def from_matrix(T: torch.Tensor) -> torch.Tensor:
+    """4×4 (or 3×4) homogeneous matrix → 7-vec."""
+    return make_pose(quat.r2q(T[..., :3, :3]), T[..., :3, 3])
+
+
 def pose_q(p: torch.Tensor) -> torch.Tensor:
     return p[..., :4]
 
@@ -56,6 +61,11 @@ def transform_point(p: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return quat.rotate(pose_q(p), x) + pose_t(p)
 
 
+def relative(p_a: torch.Tensor, p_b: torch.Tensor) -> torch.Tensor:
+    """T_a ∘ T_b⁻¹: the transform taking frame b's camera to frame a's."""
+    return compose(p_a, inverse(p_b))
+
+
 def hat(w: torch.Tensor) -> torch.Tensor:
     """so(3) hat operator, (..., 3) → (..., 3, 3)."""
     wx, wy, wz = w.unbind(-1)
@@ -68,6 +78,24 @@ def hat(w: torch.Tensor) -> torch.Tensor:
         ],
         dim=-2,
     )
+
+
+def exp_so3(w: torch.Tensor) -> torch.Tensor:
+    """Rodrigues' formula with the series branch near 0, (..., 3) → (..., 3, 3)."""
+    theta2 = torch.sum(w * w, dim=-1)[..., None, None]
+    small = theta2 < _EPS * _EPS
+    theta2_safe = torch.where(small, 1.0, theta2)
+    theta = torch.sqrt(theta2_safe)
+    A = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
+    B = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / theta2_safe)
+    W = hat(w)
+    eye = torch.eye(3, dtype=w.dtype, device=w.device).expand(W.shape)
+    return eye + A * W + B * (W @ W)
+
+
+def log_so3(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix → rotation vector."""
+    return quat.q2v(quat.r2q(R))
 
 
 def exp_se3(xi: torch.Tensor) -> torch.Tensor:

@@ -48,6 +48,43 @@ def _blob_texture(rng, tex_size):
     return np.clip(t, 0, 255)
 
 
+TEXTURE_STYLES = ("blobs", "stripes", "checker", "smooth", "mixed")
+
+
+def varied_texture(rng, tex_size: int = 1024, style: str | None = None):
+    """A texture from one of several families with a random gain and bias
+    (the vocabulary-training corpus's widening beyond the blob family; no
+    benchmark scene uses it)."""
+    if style is None:
+        style = TEXTURE_STYLES[rng.integers(len(TEXTURE_STYLES))]
+    if style == "blobs":
+        t = _blob_texture(rng, tex_size)
+    elif style == "stripes":
+        ang = rng.uniform(0, np.pi)
+        period = rng.uniform(12, 80)
+        yy, xx = np.mgrid[0:tex_size, 0:tex_size]
+        ph = (np.cos(ang) * xx + np.sin(ang) * yy) / period
+        t = 128.0 + 100.0 * np.sign(np.sin(2 * np.pi * ph))
+        t += rng.uniform(-15, 15, t.shape)
+    elif style == "checker":
+        cell = int(rng.integers(8, 48))
+        yy, xx = np.mgrid[0:tex_size, 0:tex_size]
+        t = np.where(((yy // cell) + (xx // cell)) % 2 == 0, 40.0, 215.0)
+        t += rng.uniform(-20, 20, t.shape)
+    elif style == "smooth":
+        # Band-limited noise: a coarse grid upsampled, plus dots.
+        coarse = rng.uniform(30, 225, (tex_size // 32, tex_size // 32))
+        t = np.kron(coarse, np.ones((32, 32)))
+        for _ in range(tex_size // 4):
+            y, x = rng.integers(4, tex_size - 4, 2)
+            t[y - 2 : y + 3, x - 2 : x + 3] = rng.uniform(0, 255)
+    else:  # mixed: blobs over stripes
+        t = 0.5 * _blob_texture(rng, tex_size) + 0.5 * varied_texture(rng, tex_size, "stripes")
+    gain = rng.uniform(0.55, 1.25)
+    bias = rng.uniform(-30, 30)
+    return np.clip(gain * (t - 128.0) + 128.0 + bias, 0, 255).astype(np.float32)
+
+
 def make_scene(
     seed: int = 0, n_planes: int = 3, tex_size: int = 1024,
     depths=(6.0, 9.0, 14.0), extents=(5.0, 8.0, 14.0), device=None,
@@ -225,4 +262,20 @@ def circuit_trajectory(
         pos = np.asarray([radius * np.sin(th), bob * np.sin(3.0 * th), radius * np.cos(th)], np.float32)
         q_wc = quat.v2q(torch.tensor([0.0, th, 0.0], dtype=torch.float32))
         poses.append(se3.inverse(se3.make_pose(q_wc, torch.from_numpy(pos))).numpy())
+    return ts.astype(np.float64), np.stack(poses)
+
+
+def revisit_trajectory(
+    n_frames: int, fps: float = 20.0, sweep: float = 4.0, yaw_amp: float = 0.35,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Out-and-back sweep: the camera pans right (translation with a
+    synchronized yaw) until its starting view leaves the frustum, then
+    returns over the mapped area. Returns (timestamps, poses_cw)."""
+    ts = np.arange(n_frames, dtype=np.float64) / fps
+    poses = []
+    for i in range(n_frames):
+        phase = 2.0 * np.pi * i / n_frames
+        q_wc = quat.v2q(torch.tensor([0.0, yaw_amp * np.sin(phase), 0.0], dtype=torch.float32))
+        t_wc = torch.tensor([sweep * np.sin(phase), 0.15 * np.sin(2.0 * phase), 0.0], dtype=torch.float32)
+        poses.append(se3.inverse(se3.make_pose(q_wc, t_wc)).numpy())
     return ts.astype(np.float64), np.stack(poses)

@@ -1,6 +1,7 @@
 """ORB orientation + rBRIEF-256 descriptors and the full extractor (port of
-gf_orb_slam_tpu/ops/orb.py, its production path: row-integral IC angles and
-the flat (N, 512) descriptor gather).
+gf_orb_slam_tpu/ops/orb.py): the production path (row-integral IC angles and
+the flat (N, 512) descriptor gather), the single-level helpers, and the
+patch-matmul path of `OrbConfig.patch_desc`.
 
 The sampling pattern is built on the host with the reference's own recipe,
 copied here (tests hold the copy equal). Descriptors are packed in int64 and
@@ -64,6 +65,12 @@ def _disc_halfwidths() -> np.ndarray:
 
 _ROT_PATTERNS = rotated_patterns(make_brief_pattern())
 
+# The patch-matmul path gathers one (2R+1)² patch per keypoint, covering both
+# the rotated BRIEF reach (≤ 13·√2) and the radius-15 moment disc.
+_PATCH_R = max(int(np.abs(_ROT_PATTERNS).max()), HALF_PATCH)
+_PATCH_W = 2 * _PATCH_R + 1
+_PATCH_AREA = _PATCH_W * _PATCH_W
+
 
 @lru_cache(maxsize=None)
 def _device_constants(device: torch.device):
@@ -71,6 +78,49 @@ def _device_constants(device: torch.device):
         torch.from_numpy(_ROT_PATTERNS).to(device),
         torch.from_numpy(_disc_halfwidths()).to(device),
     )
+
+
+def _moment_masks() -> np.ndarray:
+    """(2, 31, 31) x- and y-weighted circular-disc masks."""
+    r = HALF_PATCH
+    ys, xs = np.mgrid[-r : r + 1, -r : r + 1]
+    disc = (xs * xs + ys * ys) <= r * r
+    return np.stack([xs * disc, ys * disc]).astype(np.float32)
+
+
+def _moment_conv(x: torch.Tensor) -> torch.Tensor:
+    k = torch.from_numpy(_moment_masks()).to(x.device)[:, None]  # (2, 1, 31, 31)
+    return torch.nn.functional.conv2d(x[None, None], k, padding="same")[0]
+
+
+def moment_maps_circular(img: torch.Tensor) -> torch.Tensor:
+    """(2, H, W) circular-disc (m10, m01) maps by one dense float32 31×31
+    convolution (cross-correlation, zero padding)."""
+    return _moment_conv(img.to(torch.float32))
+
+
+def moment_maps(img: torch.Tensor) -> torch.Tensor:
+    """The reference's bf16-input moment maps: the image rounded to bfloat16,
+    then the float32 convolution (the masks' weights are exact in bfloat16;
+    on 8-bit images every product and sum is an exact integer)."""
+    return _moment_conv(img.to(torch.bfloat16).to(torch.float32))
+
+
+def ic_angles(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """Keypoint orientations in [0, 2π) on one level: each keypoint's 31×31
+    patch (one flat gather) against the two disc masks, (N, 961) @ (961, 2)."""
+    h, w = img.shape
+    r = HALF_PATCH
+    xi = torch.clamp(xy[..., 0].to(torch.int32), r, w - 1 - r)
+    yi = torch.clamp(xy[..., 1].to(torch.int32), r, h - 1 - r)
+    dy, dx = np.mgrid[-r : r + 1, -r : r + 1]
+    offs = torch.from_numpy((dy * w + dx).reshape(-1).astype(np.int64)).to(img.device)
+    idx = (yi * w + xi).long()[:, None] + offs[None, :]                  # (N, 961)
+    patches = torch.take(img.to(torch.float32), idx)
+    flat = torch.from_numpy(_moment_masks().reshape(2, -1).T.copy()).to(img.device)  # (961, 2)
+    m = patches @ flat
+    ang = torch.atan2(m[:, 1], m[:, 0])
+    return torch.where(ang < 0, ang + 2.0 * np.pi, ang)
 
 
 def level_moment_integrals(lvl_img: torch.Tensor):
@@ -132,6 +182,18 @@ def angle_bins(angles: torch.Tensor) -> torch.Tensor:
     return torch.clamp(b, 0, N_ROT_BINS - 1)
 
 
+def brief_descriptors(blurred: torch.Tensor, xy: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """(N, 8) int32 rBRIEF descriptors on one blurred level: nearest-pixel
+    samples at the steered pattern offsets, one (N, 512) gather."""
+    h, w = blurred.shape
+    rot, _ = _device_constants(xy.device)
+    offs = rot[angle_bins(angles)]  # (N, 256, 2, 2)
+    xi = torch.clamp(xy[:, None, None, 0].to(torch.int32) + offs[..., 0], 0, w - 1)
+    yi = torch.clamp(xy[:, None, None, 1].to(torch.int32) + offs[..., 1], 0, h - 1)
+    samples = torch.take(blurred, (yi * w + xi).long())  # (N, 256, 2)
+    return _pack_bits(samples[..., 0] < samples[..., 1])
+
+
 def brief_descriptors_flat(
     flat_blur: torch.Tensor, xy: torch.Tensor, angles: torch.Tensor,
     base: torch.Tensor, wl: torch.Tensor, hl: torch.Tensor,
@@ -147,6 +209,81 @@ def brief_descriptors_flat(
     return _pack_bits(samples[..., 0] < samples[..., 1])
 
 
+def _pair_diff_matrix() -> np.ndarray:
+    """(PATCH_AREA, 30·256) int8: column (bin, bit) holds +1 at the pair's
+    point p and −1 at q, so `patch @ D` is I(p) − I(q) for every bit of
+    every steering bin."""
+    D = np.zeros((_PATCH_AREA, N_ROT_BINS * N_BITS), np.int8)
+    for b in range(N_ROT_BINS):
+        for j in range(N_BITS):
+            (px, py), (qx, qy) = _ROT_PATTERNS[b, j]
+            col = b * N_BITS + j
+            D[(py + _PATCH_R) * _PATCH_W + (px + _PATCH_R), col] += 1
+            D[(qy + _PATCH_R) * _PATCH_W + (qx + _PATCH_R), col] -= 1
+    return D
+
+
+def _patch_moment_masks_i8() -> np.ndarray:
+    """(PATCH_AREA, 2) int8 x- and y-weighted radius-15 disc masks in patch
+    coordinates."""
+    ys, xs = np.mgrid[-_PATCH_R : _PATCH_R + 1, -_PATCH_R : _PATCH_R + 1]
+    disc = (xs * xs + ys * ys) <= HALF_PATCH * HALF_PATCH
+    return np.stack([xs * disc, ys * disc], axis=-1).reshape(_PATCH_AREA, 2).astype(np.int8)
+
+
+@lru_cache(maxsize=None)
+def _patch_constants(device: torch.device):
+    # Float32 copies, cached per device (D is 33 MB): the products below run
+    # as float32 matmuls.
+    return (torch.from_numpy(_patch_moment_masks_i8()).to(device, torch.float32),
+            torch.from_numpy(_pair_diff_matrix()).to(device, torch.float32))
+
+
+def center_i8(img: torch.Tensor) -> torch.Tensor:
+    """Float intensities → int8 I − 128 of the rounded 8-bit value."""
+    return (torch.clamp(torch.round(img), 0.0, 255.0) - 128.0).to(torch.int8)
+
+
+def patch_orientation_brief(
+    flat_blur_i8: torch.Tensor, xy: torch.Tensor,
+    base: torch.Tensor, wl: torch.Tensor, hl: torch.Tensor,
+):
+    """(angles (N,), desc (N, 8) int32) from one (2R+1)² patch gather per
+    keypoint of the flattened int8 blurred pyramid (I − 128; the same layout
+    as brief_descriptors_flat) and two products:
+
+      * IC moments = patch @ disc masks (the disc is symmetric, so the −128
+        centering cancels);
+      * all 30 steering bins' pair differences = patch @ D, the keypoint's
+        bin picked after; bit = I(p) < I(q), ties 0.
+
+    The reference's int8 × int8 → int32 products run here as float32
+    matmuls with TF32 off, and are exact: every operand is a small integer,
+    D's columns hold at most two ±1 entries (|I(p) − I(q)| ≤ 255), and the
+    moments stay under 1089 · 128 · 15 < 2^24, so no partial sum rounds in
+    any order. Orientation comes from the blurred patch (the gather path
+    uses the raw level)."""
+    n = xy.shape[0]
+    dev = xy.device
+    xi = _clip(xy[:, 0].to(torch.int32), _PATCH_R, wl - 1 - _PATCH_R)
+    yi = _clip(xy[:, 1].to(torch.int32), _PATCH_R, hl - 1 - _PATCH_R)
+    dyv = torch.arange(-_PATCH_R, _PATCH_R + 1, dtype=torch.int64, device=dev)
+    starts = (base.long()[:, None] + (yi.long()[:, None] + dyv[None, :]) * wl.long()[:, None]
+              + (xi.long() - _PATCH_R)[:, None])  # (N, W): each patch row's first element
+    # lax.gather's CLIP mode: a slice that would run past the buffer starts earlier.
+    starts = torch.clamp(starts, 0, flat_blur_i8.shape[0] - _PATCH_W)
+    cols = torch.arange(_PATCH_W, dtype=torch.int64, device=dev)
+    patch = torch.take(flat_blur_i8, starts[:, :, None] + cols).reshape(n, _PATCH_AREA).to(torch.float32)
+
+    masks, D = _patch_constants(dev)
+    m = patch @ masks  # (N, 2) = [m10, m01], exact
+    ang = torch.atan2(m[:, 1], m[:, 0])
+    ang = torch.where(ang < 0, ang + 2.0 * np.pi, ang)
+    diffs = (patch @ D).reshape(n, N_ROT_BINS, N_BITS)  # exact
+    sel = torch.gather(diffs, 1, angle_bins(ang).long()[:, None, None].expand(n, 1, N_BITS))[:, 0]
+    return ang, _pack_bits(sel < 0)
+
+
 class OrbConfig(NamedTuple):
     """The settings-yaml ORBextractor.* block."""
 
@@ -156,7 +293,9 @@ class OrbConfig(NamedTuple):
     fast_threshold: float = 20.0
     fast_min_threshold: float = 7.0
     grid: int = 8
-    # The reference's non-default patch-matmul descriptor path; not ported.
+    # Descriptor path: False (the shipped one) = row-integral IC angles and
+    # the (N, 512) element gather; True = one patch gather and two products
+    # (patch_orientation_brief), the reference's A/B path.
     patch_desc: bool = False
 
 
@@ -206,10 +345,6 @@ def extract_orb(img: torch.Tensor, cfg: OrbConfig) -> Keypoints:
     """Grayscale f32 [H, W] → Keypoints with capacity cfg.n_features: per level
     FAST quota detection, then IC orientation and rBRIEF for all levels at
     once; coordinates rescaled to level 0."""
-    if cfg.patch_desc:
-        raise NotImplementedError(
-            "OrbConfig.patch_desc=True (the reference's patch-matmul A/B path) is not ported"
-        )
     levels = pyr.build_pyramid(img, cfg.n_levels, cfg.scale)
     used, octave, sfs, base, wl, hl, ibase, xc = _level_layout(
         img.shape[0], img.shape[1], cfg, img.device
@@ -231,14 +366,18 @@ def extract_orb(img: torch.Tensor, cfg: OrbConfig) -> Keypoints:
         valids.append(valid & inside)
     xy_all = torch.cat(xs)
 
-    S_parts, Sx_parts = [], []
-    for lv, _ in used:
-        S, Sx, _ = level_moment_integrals(levels[lv])
-        S_parts.append(S.reshape(-1))
-        Sx_parts.append(Sx.reshape(-1))
-    flat_blur = torch.cat([pyr.gaussian_blur(levels[lv]).reshape(-1) for lv, _ in used])
-    ang = ic_angles_rows(torch.cat(S_parts), torch.cat(Sx_parts), xy_all, ibase, wl, hl, xc)
-    desc = brief_descriptors_flat(flat_blur, xy_all, ang, base, wl, hl)
+    if cfg.patch_desc:
+        flat_blur_i8 = torch.cat([center_i8(pyr.gaussian_blur(levels[lv])).reshape(-1) for lv, _ in used])
+        ang, desc = patch_orientation_brief(flat_blur_i8, xy_all, base, wl, hl)
+    else:
+        S_parts, Sx_parts = [], []
+        for lv, _ in used:
+            S, Sx, _ = level_moment_integrals(levels[lv])
+            S_parts.append(S.reshape(-1))
+            Sx_parts.append(Sx.reshape(-1))
+        flat_blur = torch.cat([pyr.gaussian_blur(levels[lv]).reshape(-1) for lv, _ in used])
+        ang = ic_angles_rows(torch.cat(S_parts), torch.cat(Sx_parts), xy_all, ibase, wl, hl, xc)
+        desc = brief_descriptors_flat(flat_blur, xy_all, ang, base, wl, hl)
     return Keypoints(
         uv=xy_all * sfs[:, None],
         response=torch.cat(resps),

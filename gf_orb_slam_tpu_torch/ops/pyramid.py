@@ -47,6 +47,13 @@ def _resize_mats(h_out: int, w_out: int, h_in: int, w_in: int):
     return _resize_matrix(h_out, h_in), _resize_matrix(w_out, w_in)
 
 
+def resize_matmul(img: torch.Tensor, shape: tuple[int, int]) -> torch.Tensor:
+    """Bilinear + antialias resize as two matmuls: A_h @ img @ A_wᵀ."""
+    Ah, Aw = _resize_mats(shape[0], shape[1], img.shape[0], img.shape[1])
+    Ah, Aw = (torch.from_numpy(a).to(img.device) for a in (Ah, Aw))
+    return (Ah @ img) @ Aw.T
+
+
 @lru_cache(maxsize=None)
 def _chain_resize_mats(h0: int, w0: int, n_levels: int, scale: float):
     """(L, h0, h0) and (L, w0, w0) composed-chain resize matrices (float64
@@ -120,6 +127,11 @@ def gaussian_blur(img: torch.Tensor, sigma: float = 2.0, ksize: int = 7) -> torc
 def scale_factors(n_levels: int, scale: float) -> np.ndarray:
     """Per-level scale factors [scale^l]."""
     return np.asarray([scale**lv for lv in range(n_levels)], dtype=np.float32)
+
+
+def level_sigma2(n_levels: int, scale: float) -> np.ndarray:
+    """Per-level measurement noise variance scale^(2l) (ref mvLevelSigma2)."""
+    return scale_factors(n_levels, scale) ** 2
 
 
 def features_per_level(n_features: int, n_levels: int, scale: float) -> list[int]:

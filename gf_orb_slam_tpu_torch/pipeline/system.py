@@ -2,23 +2,26 @@
 gf_orb_slam_tpu/pipeline/system.py with its synchronous semantics): two-view
 initialization, per-frame tracking, keyframe decisions, the fused keyframe
 insertion, and place recognition — the BoW vocabulary and keyframe
-database, relocalization of a LOST system, and Sim(3) loop closing.
+database, relocalization of a LOST system, and Sim(3) loop closing — with
+the reference's loop instrumentation (`loop_gt_overlap`, `loop_events`,
+`loop_probe_floor`, `loop_gate_events`; read by io_utils/loop_eval.py).
 
 Left out of the port: the reference's pipelining for a remote accelerator
 (frames in flight, deferred readback, eager finalize), because a local card
-needs none; its loop-recall instrumentation (`loop_gt_overlap`,
-`loop_probe_floor`, ROADMAP queue A). Where the reference defers an
-insertion's bookkeeping to the next frame, the port reads it right after the
-insertion and runs the loop check at the point of the next frame where the
-reference's synchronous run does: after that frame's tracking step, before
-its result is read (or at relocalization, compaction and `flush`).
+needs none. Where the reference defers an insertion's bookkeeping to the
+next frame, the port reads it right after the insertion and runs the loop
+check at the point of the next frame where the reference's synchronous run
+does: after that frame's tracking step, before its result is read (or at
+relocalization, compaction and `flush`).
 
 Host reads: one packed copy of (ok, n_inliers, pose, n_total) per tracked
 frame and the tracking step's own wide-radius branch; one packed copy of
 (kf_id, culled_kf, n_ref) after each insertion, which also carries the loop
-candidates and their covisibility rows once the map is old enough; one of
-(ok, n_inliers, pose) per LOST frame. Verifying a loop candidate reads its
-`ok`; the bootstrap and vocabulary training read freely.
+candidates and their covisibility rows once the map is old enough (and,
+with `loop_gt_overlap` set, the query's covisibility row and the
+keyframes' frame ids and validity); one of (ok, n_inliers, pose) per LOST
+frame. Verifying a loop candidate reads its `ok` (in probe mode packed with
+its funnel counts); the bootstrap and vocabulary training read freely.
 """
 
 from __future__ import annotations
@@ -102,7 +105,14 @@ class SlamConfig:
     vocab_L: int = 3
     vocab_train_kfs: int = 4
     loop_min_kf_gap: int = 10
-    loop_probe_floor: int = 0       # >0: the reference's gate-study probe (not ported)
+    loop_probe_floor: int = 0       # >0: instrumentation mode — candidates
+                                    # from streak 2 are verified with the
+                                    # Sim3-RANSAC floor lowered to this, so
+                                    # that borderline ones still run the
+                                    # re-match and OptimizeSim3 and their
+                                    # funnel counts land in loop_gate_events;
+                                    # a loop is accepted by the shipped rule
+                                    # (streak ≥ 3, ≥ 20 / ≥ 20 inliers) either way
     view_size: int = 4096           # local-map tracking view capacity
     max_lost_frames: int = 100
 
@@ -123,8 +133,6 @@ class SlamSystem:
     def __init__(self, cam: CameraModel, cfg: SlamConfig | None = None, device=None, seed: int = 0):
         cfg = cfg or SlamConfig()
         tracking.check_gf_mode(cfg.gf_mode)  # a field set after construction
-        if cfg.loop_probe_floor > 0:
-            raise NotImplementedError("loop_probe_floor > 0: the loop-gate probe is not ported (ROADMAP queue A)")
         self.cam = cam
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -167,6 +175,17 @@ class SlamSystem:
         self.n_loops_closed = 0
         self.n_compactions = 0
         self._pending_loop: dict | None = None   # the last insertion's loop candidates
+        # Loop-recall hook (synthetic ground truth only): a callable
+        # (frame_id_query, frame_id_old) -> bool, "the frusta overlap"
+        # (loop_eval.circuit_gt_overlap). When set, every loop-detection round
+        # appends to loop_events whether a revisit opportunity existed (an old
+        # keyframe with no covisibility to the query whose frustum overlaps
+        # it) and whether a loop closed.
+        self.loop_gt_overlap = None
+        self.loop_events: list[dict] = []
+        # Probe mode (loop_probe_floor > 0): one record per round and per
+        # verified candidate, with the reference's keys.
+        self.loop_gate_events: list[dict] = []
         # Per-frame key of the tracking step, advanced on the device.
         self._key = torch.zeros(2, dtype=torch.int64, device=self.device)
         self.track_view = tv.empty_view(cfg.view_size, cfg.max_points, self.device)
@@ -503,26 +522,41 @@ class SlamSystem:
 
     def _try_close_loop(self, p: dict) -> bool:
         """DetectLoop's consistency check on the host, then ComputeSim3 and
-        CorrectLoop for the first consistent candidate that verifies."""
+        CorrectLoop for the first consistent candidate that verifies (in
+        probe mode, every candidate from streak 2 is verified and recorded)."""
+        cfg = self.cfg
         kf_int = p["kf"]
         cand_np = p["cand"]
-        ok_np = p["ok"] & (cand_np < kf_int - self.cfg.loop_min_kf_gap)  # not against recent keyframes
+        ok_np = p["ok"] & (cand_np < kf_int - cfg.loop_min_kf_gap)  # not against recent keyframes
         row_by_cand = {int(c): p["covis_c"][i] for i, c in enumerate(cand_np)}
+        event = None
+        if self.loop_gt_overlap is not None:
+            event = self._loop_event(kf_int, p)
+            self.loop_events.append(event)
         pairs = self.loop_detector.update_streaks(
             cand_np, ok_np, lambda c: np.flatnonzero(row_by_cand[int(c)] > 15).tolist())
         th = self.loop_detector.consistency_threshold
+        probe = cfg.loop_probe_floor
+        if probe > 0:
+            self.loop_gate_events.append({"round": True, "kf": kf_int, "n_bow_eligible": int(ok_np.sum()),
+                                          "n_consistent": sum(1 for _, s in pairs if s >= th)})
         m = self.map
         for c, streak in pairs:
-            if streak < th:
+            if streak < (2 if probe > 0 else th):
                 continue
             lm = loop_closing.verify_candidate(self.cam, m, self.bow_db, kf_int, c, self.generator,
-                                               scale=self.cfg.scale, n_levels=self.cfg.n_levels)
-            if not bool(lm.ok):
+                                               scale=cfg.scale, n_levels=cfg.n_levels,
+                                               ransac_floor=probe if probe > 0 else 20)
+            if probe > 0:
+                ok = self._gate_record(kf_int, c, streak, lm, p) and streak >= th
+            else:
+                ok = bool(lm.ok)
+            if not ok:
                 continue
             k1 = ms.kf_index(kf_int, self.device)
             old_q_pose = m.kf_pose.index_select(0, k1)[0]
             self.map = loop_closing.correct_loop(m, kf_int, c, lm.S12, p["covis"], cam=self.cam,
-                                                 scale=self.cfg.scale, n_levels=self.cfg.n_levels)
+                                                 scale=cfg.scale, n_levels=cfg.n_levels)
             # The tracker's pose moves into the corrected gauge through the
             # query keyframe (LoopClosing.cc:429-470); velocity is relative.
             if self.last_pose is not None:
@@ -530,9 +564,38 @@ class SlamSystem:
                 self.last_pose = se3.compose(rel, self.map.kf_pose.index_select(0, k1)[0])
             self.n_loops_closed += 1
             self.loop_detector.reset()
-            self.track_view = tv.compute_track_view(self.map, kf_int, view_size=self.cfg.view_size)
+            self.track_view = tv.compute_track_view(self.map, kf_int, view_size=cfg.view_size)
+            if event is not None:
+                event["closed"] = True
+                event["matched_kf"] = int(c)
             return True
         return False
+
+    def _loop_event(self, kf_int: int, p: dict) -> dict:
+        """The recall event of a round: whether an old keyframe (before the
+        temporal gap) with no covisibility to the query views the same
+        ground-truth region. Reads only what the insertion's copy carried."""
+        fid, covq = p["kf_frame_id"], p["covis_q"]
+        q_fid = int(fid[kf_int])
+        opp = any(covq[k] <= 0 and self.loop_gt_overlap(q_fid, int(fid[k]))
+                  for k in np.flatnonzero(p["kf_valid"]) if k < kf_int - self.cfg.loop_min_kf_gap)
+        return {"kf": kf_int, "frame": q_fid, "opportunity": bool(opp), "closed": False, "matched_kf": None}
+
+    def _gate_record(self, kf_int: int, c: int, streak: int, lm, p: dict) -> bool:
+        """Probe mode: one copy of the candidate's ok and funnel counts into
+        loop_gate_events; returns ok."""
+        ok, nb, nr, ng, no = (int(v) for v in torch.stack(
+            [lm.ok.to(torch.int32), lm.n_bow, lm.n_ransac, lm.n_guided, lm.n_inliers]).cpu().tolist())
+        gt = None
+        if self.loop_gt_overlap is not None:
+            fid = p["kf_frame_id"]
+            gt = bool(self.loop_gt_overlap(int(fid[kf_int]), int(fid[c])))
+        self.loop_gate_events.append({
+            "kf": kf_int, "cand": int(c), "streak": streak, "n_bow": nb, "n_ransac": nr, "n_guided": ng,
+            "n_opt": no, "accepted": bool(ok) and streak >= self.loop_detector.consistency_threshold,
+            "gt_true": gt,
+        })
+        return bool(ok)
 
     # ------------------------------------------------------------------
     def insertion_args(self, frame, pose, obs_point, frame_id, timestamp) -> tuple[tuple, dict]:
@@ -573,10 +636,12 @@ class SlamSystem:
             # still valid in the database: excluded from the ranking here,
             # erased from the database below.
             do_detect = cfg.enable_loop_closing and self.n_kf > cfg.loop_min_kf_gap
-            self.bow_db, covis, _, covis_c, cand, ok = kdb.register_and_detect(
+            self.bow_db, covis, covis_q, covis_c, cand, ok = kdb.register_and_detect(
                 self.bow_db, self.voc, self.map, res.kf_id, res.culled_kf, max_candidates=6, do_detect=do_detect)
             if do_detect:
                 parts += [cand, ok.to(torch.int32), covis_c.reshape(-1)]
+                if self.loop_gt_overlap is not None:  # the recall event's inputs, in the same copy
+                    parts += [covis_q, self.map.kf_frame_id, self.map.kf_valid.to(torch.int32)]
         packed = torch.cat(parts).cpu().numpy()
         kf_id, culled = int(packed[0]), int(packed[1])
         self.n_ref_tracked = int(packed[2])
@@ -585,8 +650,12 @@ class SlamSystem:
         if do_detect:
             C, K = cand.shape[0], self.map.kf_capacity  # candidates' covisibility rows: DetectLoop's groups
             rest = packed[3:]
+            e = 2 * C + C * K
             self._pending_loop = {"kf": kf_id, "cand": rest[:C], "ok": rest[C : 2 * C].astype(bool),
-                                  "covis_c": rest[2 * C :].reshape(C, K), "covis": covis}
+                                  "covis_c": rest[2 * C : e].reshape(C, K), "covis": covis}
+            if self.loop_gt_overlap is not None:
+                q, fid, valid = rest[e:].reshape(3, K)
+                self._pending_loop.update(covis_q=q, kf_frame_id=fid, kf_valid=valid.astype(bool))
         return res
 
     # ------------------------------------------------------------------

@@ -455,6 +455,12 @@ def relocalize_fused(
     )
 
 
+def update_point_counters(m: ms.MapState, visible: torch.Tensor, found: torch.Tensor) -> ms.MapState:
+    """MapPoint::IncreaseVisible / IncreaseFound bookkeeping."""
+    return m._replace(pt_visible=m.pt_visible + visible.to(torch.int32),
+                      pt_found=m.pt_found + found.to(torch.int32))
+
+
 def need_new_keyframe(
     n_inliers: int,
     n_ref_tracked: int,

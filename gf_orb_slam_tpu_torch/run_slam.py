@@ -59,6 +59,12 @@ def room_config(**overrides) -> SlamConfig:
     return SlamConfig(**kw)
 
 
+def circuit_revs(n_frames: int) -> float:
+    """Revolutions of the room circuit over n_frames (one in ~270 frames,
+    at most 1.1), as the reference CLI sets them."""
+    return min(1.1, n_frames / 270.0)
+
+
 def render_sequence(cam: CameraModel, n_frames: int, scene_seed: int = 0, device=None, scene: str = "planes",
                     render_device="cpu"):
     """(timestamps (F,), ground-truth T_cw poses (F, 7), frames (F, H, W)
@@ -76,8 +82,7 @@ def render_sequence(cam: CameraModel, n_frames: int, scene_seed: int = 0, device
     device = resolve_device(device)
     if scene == "room":
         world = synthetic.make_room_scene(seed=scene_seed, device=render_device)
-        ts, poses_gt = synthetic.circuit_trajectory(n_frames, fps=cam.fps, radius=4.0,
-                                                    revs=min(1.1, n_frames / 270.0))
+        ts, poses_gt = synthetic.circuit_trajectory(n_frames, fps=cam.fps, radius=4.0, revs=circuit_revs(n_frames))
         render = synthetic.render_general
     else:
         world = synthetic.make_scene(seed=scene_seed, device=render_device)
@@ -136,12 +141,15 @@ def run_sequence(
     seed: int = 0,
     on_frame: Callable[[int, FrameLog], None] | None = None,
     vocabulary: voc_mod.Vocabulary | None = None,
+    loop_gt_overlap: Callable[[int, int], bool] | None = None,
 ) -> tuple[SlamSystem, dict]:
     """Process every frame on `device` (the first CUDA card unless given),
-    with `vocabulary` preset if given; returns the system and the result
-    summary (frames, tracked, keyframes, map points, loops closed, timing,
-    ATE against the ground truth when more than 10 frames were tracked)."""
+    with `vocabulary` preset and the loop-recall hook `loop_gt_overlap` set
+    if given; returns the system and the result summary (frames, tracked,
+    keyframes, map points, loops closed, timing, ATE against the ground
+    truth when more than 10 frames were tracked)."""
     system = SlamSystem(cam, cfg, device=device, seed=seed)
+    system.loop_gt_overlap = loop_gt_overlap
     if vocabulary is not None:
         system.set_vocabulary(vocabulary)
     n = process_frames(system, ((ts[i], frames[i]) for i in range(frames.shape[0])), on_frame)

@@ -171,6 +171,16 @@ def triangulate_dlt(P1: torch.Tensor, P2: torch.Tensor, uv1: torch.Tensor, uv2: 
     return torch.einsum("...njk,...nk->...nj", linalg.inv3(BtB), rhs)
 
 
+def triangulate_dlt_homogeneous(P1: torch.Tensor, P2: torch.Tensor, uv1: torch.Tensor, uv2: torch.Tensor) -> torch.Tensor:
+    """Nullspace DLT: the exact homogeneous solution (the smallest
+    eigenvector of AᵀA per point, sign-free after the division by w)."""
+    A = _dlt_rows(P1, P2, uv1, uv2)
+    M = torch.einsum("...nij,...nik->...njk", A, A)
+    x = linalg.smallest_eigvec_sym(M)
+    w = torch.where(torch.abs(x[..., 3]) < 1e-10, 1e-10, x[..., 3])
+    return x[..., :3] / w[..., None]
+
+
 def _check_rt(R, t, K, uv1, uv2, mask, sigma2_reproj=4.0):
     """Good triangulations of motion hypotheses (R, t), batched over their
     leading dims (CheckRT). Returns (n_good, good mask, parallax at the
@@ -274,6 +284,29 @@ def _normalised_H(T1_inv2, Hn, T1):
     H = T1_inv2 @ Hn @ T1
     h22 = H[..., 2:3, 2:3]
     return H / torch.where(torch.abs(h22) < 1e-10, 1e-10, h22)
+
+
+def initialize_with_prior(
+    cam: CameraModel,
+    uv1: torch.Tensor,
+    uv2: torch.Tensor,
+    matched: torch.Tensor,
+    pose21: torch.Tensor,
+    min_triangulated: int = 50,
+) -> TwoViewResult:
+    """Structure-only bootstrap from an external motion (odometry, IMU): R, t
+    of `pose21` are given, only the points are triangulated and gated
+    (Initializer::Initialize_withRT). No host read."""
+    R = quat.q2r(quat.qnormalize(se3.pose_q(pose21)))
+    n_good, good, _, X = _check_rt(R, se3.pose_t(pose21), camera_K(cam, uv1.device), uv1, uv2, matched)
+    return TwoViewResult(
+        success=n_good >= min_triangulated,
+        pose21=pose21,
+        points3d=X,
+        is_triangulated=good,
+        used_homography=torch.zeros((), dtype=torch.bool, device=uv1.device),
+        n_good=n_good,
+    )
 
 
 def initialize_two_view(

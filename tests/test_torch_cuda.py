@@ -5,7 +5,9 @@ device, the tracking step on the card against the
 reference's recorded outputs, and the host synchronisations of the tracking
 stages (in every GF mode), of the batched logdet, of the random modes'
 draws, of the keyframe insertion, of the BoW registration and of the
-relocalization. They skip where there is no GPU.
+relocalization; the patch-matmul descriptors, BoxLOG and the prior-pose
+initializer on the card against the CPU, and the entry step. They skip
+where there is no GPU.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only the port's dependencies:
@@ -32,9 +34,10 @@ from gf_orb_slam_tpu_torch.pipeline import track_view as tv
 from gf_orb_slam_tpu_torch.pipeline import tracking
 
 # Tracking (4096×800, 800×800, 1600×800), bootstrap and triangulation
-# (1600×1600), fusion (2048×1600), relocalization (800×1600) and the loop's
-# SearchAndFuse (4800×1600).
-PATH_SHAPES = [(4096, 800), (800, 800), (1600, 800), (1600, 1600), (2048, 1600), (800, 1600), (4800, 1600)]
+# (1600×1600), fusion (2048×1600), relocalization (800×1600), the loop's
+# SearchAndFuse (4800×1600) and the entry step (512×512).
+PATH_SHAPES = [(4096, 800), (800, 800), (1600, 800), (1600, 1600), (2048, 1600), (800, 1600), (4800, 1600),
+               (512, 512)]
 FIXTURE = os.path.join(os.path.dirname(__file__), "..", "gf_orb_slam_tpu_torch", "data", "track_fixture.npz")
 
 
@@ -457,3 +460,81 @@ def test_load_map_onto_the_card(cuda, tmp_path):
     s.load_map_state(gm, gv, gdb)
     assert s.state == system_mod.State.LOST
     assert s.process(img, 0.0).state == "WORKING"
+
+
+def bench_frame(i: int = 0) -> np.ndarray:
+    """Bench frame i (the port's CPU render, rounded to uint8 values)."""
+    from gf_orb_slam_tpu_torch import run_slam
+    from gf_orb_slam_tpu_torch.io_utils import synthetic
+
+    _, poses = synthetic.trajectory(240, fps=20.0)
+    img = synthetic.render(synthetic.make_scene(seed=0), run_slam.BENCH_CAMERA, torch.from_numpy(poses[i]))
+    return torch.clamp(torch.round(img), 0, 255).numpy()
+
+
+@pytest.mark.cuda
+def test_patch_desc_on_the_card_equals_the_cpu(cuda):
+    """The patch path's products are exact, so the card's descriptors equal
+    the CPU's bit for bit wherever the keypoints agree."""
+    from gf_orb_slam_tpu_torch.ops import orb
+
+    img = torch.from_numpy(bench_frame())
+    cfg = OrbConfig(patch_desc=True)
+    kc, kg = orb.extract_orb(img, cfg), orb.extract_orb(img.to(cuda), cfg)
+    same = (kg.uv.cpu() == kc.uv).all(dim=1) & kg.valid.cpu() & kc.valid
+    assert same.sum() >= 0.98 * kc.valid.sum()
+    assert torch.equal(kg.desc.cpu()[same], kc.desc[same])
+    assert (kg.angle.cpu() - kc.angle)[same].abs().max() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_detect_blobs_on_the_card_equals_the_cpu(cuda):
+    from gf_orb_slam_tpu_torch.ops import boxlog
+
+    img = torch.from_numpy(bench_frame(7))
+    xc, vc, okc = boxlog.detect_blobs(img, n_keep=400)
+    xg, vg, okg = (a.cpu() for a in boxlog.detect_blobs(img.to(cuda), n_keep=400))
+    tol = 1e-4 * float(vc.max())
+    assert torch.equal(okg, okc) and (vg - vc).abs().max() <= tol
+    differ = ~(xg == xc).all(dim=1)
+    assert differ.float().mean() <= 0.05
+    for i in torch.nonzero(differ).flatten().tolist():  # only near-ties change places
+        assert int(((vc - vc[i]).abs() <= 2 * tol).sum()) >= 2
+
+
+@pytest.mark.cuda
+def test_initialize_with_prior_on_the_card(cuda):
+    from gf_orb_slam_tpu_torch.geometry import quat
+    from gf_orb_slam_tpu_torch.geometry.camera import EUROC_CAM, project
+    from gf_orb_slam_tpu_torch.solvers import initializer
+
+    rng = np.random.default_rng(0)
+    X = torch.from_numpy(rng.uniform([-3, -2, 4.0], [3, 2, 12.0], (400, 3)).astype(np.float32))
+    pose21 = se3.make_pose(quat.v2q(torch.tensor([0.0, 0.03, 0.0])), torch.tensor([-0.4, 0.0, 0.02]))
+    uv1, _, ok1 = project(EUROC_CAM, X)
+    uv2, _, ok2 = project(EUROC_CAM, se3.transform_point(pose21, X))
+    args = (uv1 + torch.from_numpy(rng.normal(0, 0.4, (400, 2)).astype(np.float32)), uv2, ok1 & ok2, pose21)
+    want = initializer.initialize_with_prior(EUROC_CAM, *args)
+    args = [a.to(cuda) for a in args]
+    initializer.initialize_with_prior(EUROC_CAM, *args)  # caches K on the card (one copy)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = initializer.initialize_with_prior(EUROC_CAM, *args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(got.n_good) == int(want.n_good) > 300 and bool(got.success)
+    assert torch.equal(got.is_triangulated.cpu(), want.is_triangulated)
+
+
+@pytest.mark.cuda
+def test_entry_step_on_the_card(cuda):
+    from gf_orb_slam_tpu_torch import entry
+
+    fn, args = entry.entry()
+    assert all(a.device == cuda for a in args)
+    before = hamming.LAUNCHES_BY_SHAPE[(512, 512)]
+    pose, n_inliers, logdet = fn(*args)
+    torch.cuda.synchronize()
+    assert hamming.LAUNCHES_BY_SHAPE[(512, 512)] == before + 1
+    assert torch.isfinite(pose).all() and torch.isfinite(logdet) and int(n_inliers) > 10

@@ -145,5 +145,20 @@ def test_extract_orb_and_make_frame(image):
 
 
 def test_patch_desc_path_refused(image):
-    with pytest.raises(NotImplementedError):
-        torb.extract_orb(torch.from_numpy(image), torb.OrbConfig(n_features=50, patch_desc=True))
+    """The name is historical (the path was once refused): `patch_desc=True`
+    runs, and the patch-matmul path meets its quality criterion. It keeps
+    the gather path's keypoints, and its descriptors meet the reference's
+    own quality criterion against them (tests/test_orb_frontend.py): most
+    keypoints keep their steering bin, and where they do the descriptors
+    differ in few bits (blurred against raw moments, 8-bit rounding)."""
+    kp = torb.extract_orb(torch.from_numpy(image), torb.OrbConfig(n_features=200, patch_desc=True))
+    kg = torb.extract_orb(torch.from_numpy(image), torb.OrbConfig(n_features=200))
+    v = (kp.valid & kg.valid).numpy()
+    assert v.sum() > 100
+    np.testing.assert_array_equal(kp.uv.numpy()[v], kg.uv.numpy()[v])
+    from gf_orb_slam_tpu_torch.ops import matching as tmatch
+
+    dist = torch.diagonal(tmatch.hamming_matrix(kp.desc, kg.desc)).numpy()[v]
+    same_bin = (torb.angle_bins(kp.angle) == torb.angle_bins(kg.angle)).numpy()[v]
+    assert same_bin.mean() > 0.5
+    assert np.median(dist[same_bin]) <= 12 and dist[same_bin].mean() < 32

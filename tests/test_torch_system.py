@@ -197,8 +197,8 @@ def test_system_runs_with_the_reference_default_flags_on_cpu():
     states = [s.process(frames[i], float(ts[i])).state for i in range(6)]
     assert "WORKING" in states and s.n_kf == 2
     assert s.voc is None and s.bow_db is None  # trained once vocab_train_kfs keyframes exist
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        system.SlamSystem(CAM, system.SlamConfig(loop_probe_floor=5), device="cpu")
+    probe = system.SlamSystem(CAM, system.SlamConfig(loop_probe_floor=5), device="cpu")  # no longer refused
+    assert probe.loop_gate_events == [] and probe.loop_events == [] and probe.loop_gt_overlap is None
 
 
 @pytest.fixture(scope="module")
