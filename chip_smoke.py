@@ -145,6 +145,21 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              n_bow ≥ PROBE_FLOOR and the funnel against the CPU port's on a
              copy with the same Sim3 samples; every
              texture style and a few frames along `revisit_trajectory`;
+14. churn — runs before 12. The room circuit of phase 7 cut to 300 frames
+             (churn_fixture.npz: `max_keyframes` 32, so that the keyframe
+             slab compacts before frame 180) with tools/reloc_recall.py's
+             kidnap (io_utils/reloc_eval.py: 8 black frames from frame 180,
+             then the camera a quarter revolution back): poses finite,
+             tracked ≥ 98% of the reference's frames, compactions within
+             ±1 of the reference's with one before the black frames, live
+             keyframes after each within ±25% of the reference's, recovered
+             no later than the reference + 2 frames with no false
+             relocalization, ATE against the ground truth each frame showed
+             ≤ 2× the reference's, 2 host syncs per tracked frame and 3 per
+             insertion frame (frames without loop, relocalization or
+             compaction work); reported: host syncs and ms per compaction,
+             the tracked-frame median 30 frames before and after each
+             compaction, peak memory and Hamming launches by shape;
 12. profile — the profiler's device duration of both kernels at 4096×800, a
              cross-check of phase 3's graph times, the kernel launches of
              the last local-map call of each mode's run (subset: phase 5's),
@@ -154,14 +169,15 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              profiler ran. It comes last, so that the profiler
              cannot slow the host's launches in the timed phases.
 
-Each path phase (4-7, 9, 10, 10b, 10c, 13) sets the kernel's launch counts to 0 just before it
+Each path phase (4-7, 9, 10, 10b, 10c, 13, 14) sets the kernel's launch counts to 0 just before it
 drives the path and reads them just after. Then the kernel's launches by
 shape, the seconds each phase took, the kernel table line and, last,
 {"ok": true, "device": {...}}. The
 fixtures (gf_orb_slam_tpu_torch/data/track_fixture.npz, place_fixture.npz,
-gf_modes_fixture.npz and leftovers_fixture.npz) are written from the JAX
-reference by tools/make_torch_fixture.py, tools/make_torch_place_fixture.py,
-tools/make_torch_gf_modes_fixture.py and tools/make_torch_leftovers_fixture.py.
+gf_modes_fixture.npz, leftovers_fixture.npz and churn_fixture.npz) are
+written from the JAX reference by tools/make_torch_fixture.py,
+tools/make_torch_place_fixture.py, tools/make_torch_gf_modes_fixture.py,
+tools/make_torch_leftovers_fixture.py and tools/make_torch_churn_fixture.py.
 """
 
 from __future__ import annotations
@@ -217,6 +233,9 @@ GBA_ATE_FACTOR = 1.1       # converged solves: keyframe ATE ≤ this × the Schu
 GBA_CONVERGED = ((40, 100), (5, 40))  # the converged solves: distributed LM × PCG, Schur stage LM iterations
 LEFTOVERS_FIXTURE = os.path.join(REPO, "gf_orb_slam_tpu_torch", "data", "leftovers_fixture.npz")
 EPISODE_SLACK = 12         # phase 7: frames by which a closed episode may move (two keyframe cadences)
+CHURN_FIXTURE = os.path.join(REPO, "gf_orb_slam_tpu_torch", "data", "churn_fixture.npz")
+COMPACTION_SLACK = 1       # phase 14: compactions within ±1 of the reference's
+RECOVER_SLACK = 2          # phase 14: frames to recover ≤ the reference's + 2
 BENCH_FRAMES = 96          # the bench: 24 warm-up + 6 windows of 12 frames (a cut of length; the time limit)
 SWEEP_ARGS = ["--synthetic", "60", "--budgets", "0", "100", "--rounds", "1"]  # GF on from ~frame 45
 PROBE_FLOOR = 8            # phase 13: the probe's Sim3-RANSAC floor
@@ -745,6 +764,12 @@ def main() -> int:
     del system_run
     lap("leftovers")
 
+    # --- 14. compaction, then a kidnap, through the same loop ---
+    rec = run_churn_phase(dev, voc) | {"device": kind, "nvidia_smi": smi}
+    emit(rec)
+    path_recs["churn"] = rec
+    lap("churn")
+
     # --- 12. the profiler's cross-check, after every timed phase ---
     emit(profile_phase(dev, gf_runs, loop) | {"device": kind, "nvidia_smi": smi})
     del gf_runs, loop
@@ -801,7 +826,8 @@ def load_place_fixture(run: str, path: str = PLACE_FIXTURE):
 
 
 # Functions of the path that drive_system records, by module attribute:
-# (module, attribute, synchronise after each call to time it).
+# (module, or module:class for a method, attribute, synchronise after each
+# call to time it).
 RECORDED = {
     "insert": ("gf_orb_slam_tpu_torch.pipeline.local_mapping", "insert_keyframe_fused", False),
     "register": ("gf_orb_slam_tpu_torch.retrieval.keyframe_db", "register_and_detect", False),
@@ -810,6 +836,7 @@ RECORDED = {
     "correct": ("gf_orb_slam_tpu_torch.loop.loop_closing", "correct_loop", True),
     "step": ("gf_orb_slam_tpu_torch.pipeline.tracking", "track_frame_fused", False),
     "local_map": ("gf_orb_slam_tpu_torch.pipeline.tracking", "track_local_map", False),
+    "compact": ("gf_orb_slam_tpu_torch.pipeline.system:SlamSystem", "_compact_keyframes", True),
 }
 # Recorded for phase 9's re-runs and launch counts; phase 8 re-runs the others.
 TRACKING_CALLS = ("step", "local_map")
@@ -829,7 +856,12 @@ def drive_system(dev, cam, cfg, ts, poses_gt, frames, voc, seed: int, loop_gt_ov
     from gf_orb_slam_tpu_torch import run_slam
     from gf_orb_slam_tpu_torch.kernels import hamming
 
-    modules = {name: importlib.import_module(mod) for name, (mod, _, _) in RECORDED.items()}
+    def owner(path):
+        mod, _, cls = path.partition(":")
+        module = importlib.import_module(mod)
+        return getattr(module, cls) if cls else module
+
+    modules = {name: owner(mod) for name, (mod, _, _) in RECORDED.items()}
     originals = {name: getattr(modules[name], attr) for name, (_, attr, _) in RECORDED.items()}
     calls: dict[str, list] = {k: [] for k in RECORDED}
     last_args: dict[str, tuple] = {}
@@ -916,7 +948,7 @@ def breakdown_phase(runs: dict) -> dict:
     rec = {"phase": "breakdown", "reps": 3}
     for name, run in runs.items():
         for fn_name, (a, kw) in run["last_args"].items():
-            if fn_name == "correct" or fn_name in TRACKING_CALLS:
+            if fn_name in ("correct", "compact") or fn_name in TRACKING_CALLS:
                 continue
             rec[f"{name}.{fn_name}_ms"] = timed_ms(lambda: run["originals"][fn_name](*a, **kw))
     a, kw = runs["loop"]["last_args"]["correct"]
@@ -985,7 +1017,7 @@ def run_record(run: dict, F: int) -> dict:
         "host_syncs_inside_registrations": sorted({r["syncs"] for r in calls["register"]}),
         "register_host_ms_median": statistics.median(r["ms"] for r in calls["register"]) if calls["register"] else None,
         "reloc_calls": [{k: r[k] for k in ("frame", "ms", "syncs", "launches")} for r in calls["reloc"]],
-        "verify_calls": [{k: r[k] for k in ("ms", "syncs", "launches")} for r in calls["verify"]],
+        "verify_calls": [{k: r[k] for k in ("frame", "ms", "syncs", "launches")} for r in calls["verify"]],
         "correct_calls": [{k: r[k] for k in ("ms", "syncs", "launches")} for r in calls["correct"]],
         "verify_ms_total": sum(r["ms"] for r in calls["verify"]),
         "correct_ms_total": sum(r["ms"] for r in calls["correct"]),
@@ -1198,6 +1230,99 @@ def run_loop_phase(dev, voc):
         raise AssertionError("loop phase outside its gates: " + "; ".join(bad) + f" — {short(rec)}")
     return rec, {k: run[k] for k in ("last_args", "originals", "system", "closing_verify")} | {"ts": ts,
                                                                                               "poses_gt": poses_gt}
+
+
+def run_churn_phase(dev, voc):
+    """Phase 14: the room circuit with a small keyframe capacity and a kidnap
+    (churn_fixture.npz): keyframe-slab compaction before the black frames,
+    then relocalization against old keyframes, held against the
+    reference's recorded run. Raises on any gate."""
+    import numpy as np
+    import torch
+
+    from gf_orb_slam_tpu_torch import run_slam
+    from gf_orb_slam_tpu_torch.geometry.camera import EUROC_CAM
+    from gf_orb_slam_tpu_torch.io_utils import reloc_eval
+
+    meta, z = load_place_fixture("churn", CHURN_FIXTURE)
+    ref, sched = meta["summary"], meta["schedule"]
+    F, revs = meta["frames"], run_slam.circuit_revs(meta["frames"])
+    src = reloc_eval.frame_src(F, "kidnap", revs, sched["blackout_len"])
+    if src != z["frame_src"].tolist():
+        raise AssertionError("reloc_eval's kidnap schedule is not the fixture's frame_src")
+    t0 = time.perf_counter()
+    ts, poses_gt, gt_frames = run_slam.render_sequence(EUROC_CAM, F, meta["scene_seed"], dev, scene="room")
+    shown = torch.tensor([max(i, 0) for i in src], device=dev)
+    black = torch.tensor([i < 0 for i in src], device=dev)
+    frames = torch.where(black[:, None, None], 0.0, gt_frames.index_select(0, shown))
+    del gt_frames
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    cfg = run_slam.room_config(max_keyframes=meta["slam_config"]["max_keyframes"])
+    # The run's ATE is read against the ground truth each frame showed (a
+    # black frame is never tracked).
+    run = drive_system(dev, EUROC_CAM, cfg, ts, poses_gt[np.maximum(src, 0)], frames, voc, seed=0)
+    del frames
+    system = run["system"]
+    rec = {"phase": "churn", "entry": "pipeline.system.SlamSystem.process", "render_seconds": render_s,
+           "max_keyframes": cfg.max_keyframes, "schedule": sched, **run_record(run, F)}
+    gt_centers = run_slam.camera_centers(poses_gt)
+    centers = [None if lg.pose_cw is None else run_slam.camera_centers(lg.pose_cw[None])[0] for lg in system.logs]
+    rec["recovery"] = reloc_eval.recovery([lg.state for lg in system.logs], centers, src, gt_centers,
+                                          sched["blackout_len"])
+    compactions = run["calls"]["compact"]
+    rec["compactions"] = [list(c) for c in system.compactions]
+    rec["compaction_calls"] = [{k: r[k] for k in ("frame", "ms", "syncs")} for r in compactions]
+    # Tracked frames (no insertion) just before and after each compaction.
+    plain = [i for i, (_, ins, has) in enumerate(run["states"]) if has and not ins]
+
+    def median_ms(frames):
+        ms = [run["per_frame_ms"][i] for i in plain if i in frames]
+        return statistics.median(ms) if ms else None
+
+    rec["tracked_ms_around_compactions"] = [
+        {"frame": f, "before": median_ms(range(f - 30, f)), "after": median_ms(range(f + 1, f + 31))}
+        for f, _ in system.compactions]
+    reloc = [i for i in range(1, F) if run["states"][i - 1][0] == "LOST" and run["states"][i][0] == "WORKING"]
+    special = set(reloc) | {r["frame"] for name in ("verify", "correct", "reloc", "compact")
+                            for r in run["calls"][name]}
+    rec["host_syncs_per_tracked_frame_without_loop_reloc_compaction"] = sorted(
+        {run["syncs"][i] for i, (_, ins, has) in enumerate(run["states"]) if has and not ins and i not in special})
+    rec["host_syncs_per_insert_frame_without_loop_reloc_compaction"] = sorted(
+        {run["syncs"][i] for i, (_, ins, _) in enumerate(run["states"]) if ins and i not in special})
+    rec["unexpected_sync_frames"] = [
+        {"frame": i, "syncs": run["syncs"][i], "state": st, "inserted": ins, "special": i in special}
+        for i, (st, ins, has) in enumerate(run["states"]) if has and run["syncs"][i] != (3 if ins else 2)]
+    rec.update({"ref_tracked": ref["tracked"], "ref_compactions": z["compactions"].tolist(),
+                "ref_recovery": ref["recovery"], "ref_ate_rmse_m": ref["ate_rmse_m"],
+                "ref_keyframes_inserted": ref["keyframes_inserted"], "ref_loops": z["loops"].tolist(),
+                "ref_reloc_frames": z["reloc_frames"].tolist(), "reloc_frames": reloc})
+    bad = []
+    if not rec["poses_finite"]:
+        bad.append("a pose is not finite or not a 7-vector")
+    if rec["tracked"] < TRACKED_SHARE * ref["tracked"]:
+        bad.append(f"tracked {rec['tracked']} of {F} (reference {ref['tracked']})")
+    n_ref = len(rec["ref_compactions"])
+    if abs(len(rec["compactions"]) - n_ref) > COMPACTION_SLACK:
+        bad.append(f"{len(rec['compactions'])} compactions (reference {n_ref})")
+    if not any(f < sched["blackout_at"] for f, _ in rec["compactions"]):
+        bad.append(f"no compaction before the black frames at {sched['blackout_at']}")
+    for (f, live), (rf, rlive) in zip(rec["compactions"], rec["ref_compactions"]):
+        if abs(live - rlive) > KF_SHARE * rlive:
+            bad.append(f"{live} live keyframes after the compaction at frame {f} (reference {rlive} at {rf})")
+    r, rr = rec["recovery"], ref["recovery"]
+    if not r["recovered"] or r["false_reloc"] or r["frames_to_recover"] > rr["frames_to_recover"] + RECOVER_SLACK:
+        bad.append(f"recovery {r} (reference {rr})")
+    if rec["ate_rmse_m"] is None or rec["ate_rmse_m"] > ATE_FACTOR * ref["ate_rmse_m"]:
+        bad.append(f"ATE {rec['ate_rmse_m']} m (reference {ref['ate_rmse_m']} m)")
+    if (rec["host_syncs_per_tracked_frame_without_loop_reloc_compaction"] != [2]
+            or rec["host_syncs_per_insert_frame_without_loop_reloc_compaction"] != [3]):
+        bad.append(f"host syncs {rec['host_syncs_per_tracked_frame_without_loop_reloc_compaction']} per tracked "
+                   f"frame and {rec['host_syncs_per_insert_frame_without_loop_reloc_compaction']} per insertion "
+                   "frame (expected 2 and 3)")
+    if bad:
+        raise AssertionError("churn phase outside its gates: " + "; ".join(bad) + f" — {short(rec)}")
+    return rec
 
 
 def reference_prefix(z: dict, poses_gt, F: int) -> dict:

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from gf_orb_slam_tpu_torch.geometry import se3
+from gf_orb_slam_tpu_torch.geometry import quat, se3
 from gf_orb_slam_tpu_torch.geometry.camera import CameraModel
 from gf_orb_slam_tpu_torch.io_utils.timing import TimeLog
 from gf_orb_slam_tpu_torch.loop import loop_closing
@@ -118,6 +118,7 @@ class SlamConfig:
 
     def __post_init__(self):
         tracking.check_gf_mode(self.gf_mode)
+        tv.check_keyframe_capacity(self.max_keyframes)
 
 
 @dataclass
@@ -132,7 +133,8 @@ class FrameLog:
 class SlamSystem:
     def __init__(self, cam: CameraModel, cfg: SlamConfig | None = None, device=None, seed: int = 0):
         cfg = cfg or SlamConfig()
-        tracking.check_gf_mode(cfg.gf_mode)  # a field set after construction
+        tracking.check_gf_mode(cfg.gf_mode)  # fields set after construction
+        tv.check_keyframe_capacity(cfg.max_keyframes)
         self.cam = cam
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -174,6 +176,7 @@ class SlamSystem:
         self.loop_detector = loop_closing.LoopDetector()
         self.n_loops_closed = 0
         self.n_compactions = 0
+        self.compactions: list[tuple[int, int]] = []  # (frame, live keyframes after) per compaction
         self._pending_loop: dict | None = None   # the last insertion's loop candidates
         # Loop-recall hook (synthetic ground truth only): a callable
         # (frame_id_query, frame_id_old) -> bool, "the frusta overlap"
@@ -190,6 +193,21 @@ class SlamSystem:
         self._key = torch.zeros(2, dtype=torch.int64, device=self.device)
         self.track_view = tv.empty_view(cfg.view_size, cfg.max_points, self.device)
         self.time_log = TimeLog()
+        self._build_device_constants()
+
+    def _build_device_constants(self) -> None:
+        """Build now the device constants that tracking, GF selection and
+        keyframe insertion cache on first use, so that the first such frame
+        of a process reads the host no more often than the later ones (each
+        host→device copy synchronises). Keyed as the per-frame path keys
+        them: by a tensor's device, with positional arguments."""
+        dev, h, w = self._key.device, self.cam.height, self.cam.width
+        for c in (self.init_orb_cfg, self.orb_cfg):
+            orb._level_layout(h, w, c, dev)
+        level_consts(self.cfg.scale, self.cfg.n_levels, dev)
+        initializer.camera_K(self.cam, dev)
+        initializer.camera_K_inv(self.cam, dev)
+        quat.dqbar_by_dq(torch.float32, dev)
 
     def _empty_map(self) -> ms.MapState:
         return ms.empty_map(
@@ -460,7 +478,8 @@ class SlamSystem:
         if self.bow_db is not None:
             self.bow_db = kdb.permute(self.bow_db, perm)
         self.loop_detector.reset()
-        self.n_kf = int(n_valid)
+        self.n_kf = int(n_valid)  # the compaction's one host read
+        self.compactions.append((self.frame_id, self.n_kf))
         if self.n_kf > 0:
             self.track_view = tv.compute_track_view(self.map, self.n_kf - 1, view_size=self.cfg.view_size)
 

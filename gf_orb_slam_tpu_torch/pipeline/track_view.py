@@ -12,6 +12,21 @@ import torch
 from gf_orb_slam_tpu_torch.mapping import map_state as ms
 from gf_orb_slam_tpu_torch.ops.fast import top_k_stable
 
+# Keyframes whose points make a view: the centre's top covisible neighbours.
+# The reference's `top_k` over a keyframe row needs at least this many
+# keyframe slots, so it is also the smallest keyframe capacity (see
+# check_keyframe_capacity).
+N_NEIGHBOR_KFS = 12
+
+
+def check_keyframe_capacity(max_keyframes: int) -> None:
+    """A keyframe capacity below N_NEIGHBOR_KFS raises: the reference fails
+    on it at its first track view (`top_k` larger than the row), and the
+    port's stable top-k would quietly take fewer neighbours."""
+    if max_keyframes < N_NEIGHBOR_KFS:
+        raise ValueError(f"max_keyframes {max_keyframes} < {N_NEIGHBOR_KFS}: a track view takes the "
+                         f"{N_NEIGHBOR_KFS} top covisible keyframes")
+
 
 class TrackView(NamedTuple):
     ids: torch.Tensor       # (V,) int32 global point ids (P = invalid padding)
@@ -30,7 +45,7 @@ def compute_track_view(
     m: ms.MapState,
     center_kf,
     view_size: int = 4096,
-    n_neighbor_kfs: int = 12,
+    n_neighbor_kfs: int = N_NEIGHBOR_KFS,
 ) -> TrackView:
     """Candidates = points observed by the center keyframe's top covisible
     neighbors (plus itself), capped at view_size (lowest ids first)."""

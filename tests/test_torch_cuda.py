@@ -5,7 +5,8 @@ device, the tracking step on the card against the
 reference's recorded outputs, and the host synchronisations of the tracking
 stages (in every GF mode), of the batched logdet, of the random modes'
 draws, of the keyframe insertion, of the BoW registration and of the
-relocalization; the patch-matmul descriptors, BoxLOG and the prior-pose
+relocalization, and the one host read of a keyframe-slab compaction; the
+patch-matmul descriptors, BoxLOG and the prior-pose
 initializer on the card against the CPU, and the entry step. They skip
 where there is no GPU.
 
@@ -538,3 +539,46 @@ def test_entry_step_on_the_card(cuda):
     torch.cuda.synchronize()
     assert hamming.LAUNCHES_BY_SHAPE[(512, 512)] == before + 1
     assert torch.isfinite(pose).all() and torch.isfinite(logdet) and int(n_inliers) > 10
+
+
+@pytest.mark.cuda
+def test_compaction_reads_the_host_once(cuda):
+    """A keyframe-slab compaction of the fixture's map (14 slots, 5 live, one
+    more erased) with its BoW database reads the host once, for the live
+    count (`int(n_valid)`): renumbering the map, permuting the database and
+    the new track view make no host sync."""
+    import warnings
+
+    from gf_orb_slam_tpu_torch.mapping import map_state as ms
+    from gf_orb_slam_tpu_torch.pipeline.system import SlamConfig, SlamSystem
+    from gf_orb_slam_tpu_torch.retrieval import keyframe_db as kdb
+    from gf_orb_slam_tpu_torch.retrieval import vocabulary as voc_mod
+
+    _, meta, m, _, _ = load_fixture(cuda)
+    cam = CameraModel(**meta["camera"])
+    system = SlamSystem(cam, SlamConfig(), device=cuda)
+    k = torch.nonzero(m.kf_valid).flatten().tolist()[1]
+    system.map = ms.erase_keyframe(m, k)
+    system.set_vocabulary(voc_mod.load_default_vocabulary(cuda))
+    system.n_kf = int(m.n_kf)
+    m2, perm, n_valid = ms.compact_keyframes(system.map)  # caches device constants
+    tv.compute_track_view(m2, 0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        m2, perm, n_valid = ms.compact_keyframes(system.map)
+        kdb.permute(system.bow_db, perm)
+        tv.compute_track_view(m2, 3, view_size=system.cfg.view_size)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            system._compact_keyframes()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert sum("synchronizing CUDA operation" in str(w.message) for w in caught) == 1
+    assert system.n_kf == 4 and system.compactions == [(0, 4)]
+    assert bool(system.map.kf_valid[:4].all()) and bool(system.bow_db.valid[:4].all())

@@ -44,6 +44,6 @@ def test_port_imports_without_jax():
     assert len(names) >= 55  # every subpackage and module was walked
     for mod in ("gf.active_matching", "gf.selection", "geometry.pwls", "pipeline.tracking", "parallel.global_ba",
                 "parallel.launch", "io_utils.settings", "io_utils.datasets", "io_utils.images", "io_utils.prefetch",
-                "io_utils.stage_probe", "io_utils.loop_eval", "io_utils.viz", "ops.boxlog", "entry", "bench",
-                "batch_sweep"):
+                "io_utils.stage_probe", "io_utils.loop_eval", "io_utils.reloc_eval", "io_utils.viz", "ops.boxlog",
+                "entry", "bench", "batch_sweep"):
         assert f"gf_orb_slam_tpu_torch.{mod}" in names, mod

@@ -11,15 +11,19 @@ does, and saves each run's global-BA problem (every valid keyframe, the first
 fixed; `SlamSystem.ba_problem`) with the ground-truth camera centres of its
 keyframes to --out; then it runs `study` on the card.
 
-`study` solves each saved problem with the distributed solver on an
-in-process group of one (10 LM × 25 PCG, as phase 11, and 40 × 100) and with
-the Schur solver (5 + 10 LM, as phase 11, and 5 + 40), and prints for each
-solve the Huber cost, the keyframe ATE (Sim(3)-aligned), each keyframe's
-aligned error, and the edges whose χ² exceeds the Huber threshold. One JSON
-line per map. Two suspects of a biased optimum are checked beside them:
-`pyramid_exact` re-solves (Schur 5 + 40) with each observation mapped from
-its level to level 0 through the pyramid's centre-aligned resizes, in place
-of the reference's `xy · 1.2^level`; `undistort_roundtrip_px` is the largest
+PATH is a file `record` wrote, or a saved map of the 420-frame room circuit
+(io_utils/snapshot.py's schema, which the port and the reference share;
+`tools/torch_room_spread.py --save-map` writes one from either side), whose
+problem `study` builds as `record` does. `study` solves each saved problem
+with the distributed solver on an in-process group of one (10 LM × 25 PCG,
+as phase 11, and 40 × 100) and with the Schur solver (5 + 10 LM, as phase
+11, and 5 + 40), and prints for each solve the Huber cost, the keyframe
+ATE (Sim(3)-aligned), each keyframe's aligned error, and the edges whose χ²
+exceeds the Huber threshold. One JSON line per map. Two suspects of a
+biased optimum are checked beside them: `pyramid_exact` re-solves (Schur
+5 + 40) with each observation mapped from its level to level 0 through the
+pyramid's centre-aligned resizes, in place of the reference's
+`xy · 1.2^level`; `undistort_roundtrip_px` is the largest
 pixel error of the camera's undistortion, distorted back, over the image.
 """
 
@@ -35,6 +39,38 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 FIELDS = ("poses", "points", "fixed", "point_valid", "obs_uv", "obs_point", "obs_w")
+ROOM_FRAMES = 420
+
+
+def problem_arrays(system, m, ts, poses_gt, r: int) -> dict:
+    """Run r's global-BA problem of map m (every valid keyframe, the first
+    fixed) with its keyframes' frames and ground-truth camera centres."""
+    import numpy as np
+    import torch
+
+    from gf_orb_slam_tpu_torch import run_slam
+
+    ids = torch.nonzero(m.kf_valid).flatten().tolist()
+    prob, _, _, _ = system.ba_problem(m, ids, fixed_ids=ids[:1])
+    frame = np.abs(np.asarray(ts)[None, :] - m.kf_timestamp.cpu().numpy()[ids][:, None]).argmin(axis=1)
+    arrays = {f"run{r}_{f}": getattr(prob, f).cpu().numpy() for f in FIELDS}
+    arrays[f"run{r}_gt_centers"] = run_slam.camera_centers(poses_gt)[frame]
+    arrays[f"run{r}_kf_frame"] = frame
+    return arrays
+
+
+def snapshot_problem(path: str) -> dict:
+    """A saved room map as the arrays `record` writes for one run."""
+    from gf_orb_slam_tpu_torch import run_slam
+    from gf_orb_slam_tpu_torch.geometry.camera import EUROC_CAM
+    from gf_orb_slam_tpu_torch.io_utils import snapshot, synthetic
+    from gf_orb_slam_tpu_torch.pipeline.system import SlamSystem
+
+    m, _, _ = snapshot.load_map(path, "cpu")
+    ts, poses_gt = synthetic.circuit_trajectory(ROOM_FRAMES, fps=EUROC_CAM.fps, radius=4.0,
+                                                revs=run_slam.circuit_revs(ROOM_FRAMES))
+    system = SlamSystem(EUROC_CAM, run_slam.room_config(), device="cpu")
+    return {"runs": 1, **problem_arrays(system, m, ts, poses_gt, 0)}
 
 
 def record(runs: int, out: str) -> None:
@@ -46,24 +82,18 @@ def record(runs: int, out: str) -> None:
     from gf_orb_slam_tpu_torch.retrieval import vocabulary as voc_mod
 
     dev = torch.device("cuda")
-    ts, poses_gt, frames = run_slam.render_sequence(EUROC_CAM, 420, 0, dev, scene="room")
+    ts, poses_gt, frames = run_slam.render_sequence(EUROC_CAM, ROOM_FRAMES, 0, dev, scene="room")
     voc = voc_mod.load_default_vocabulary(dev)
     arrays = {}
     for r in range(runs):
         t0 = time.perf_counter()
         system, result = run_slam.run_sequence(EUROC_CAM, run_slam.room_config(), ts, poses_gt, frames, dev,
                                                vocabulary=voc)
-        ids = torch.nonzero(system.map.kf_valid).flatten().tolist()
-        prob, _, _, _ = system.ba_problem(system.map, ids, fixed_ids=ids[:1])
-        kf_ts = system.map.kf_timestamp.cpu().numpy()[ids]
-        frame = np.abs(np.asarray(ts)[None, :] - kf_ts[:, None]).argmin(axis=1)
-        for f in FIELDS:
-            arrays[f"run{r}_{f}"] = getattr(prob, f).cpu().numpy()
-        arrays[f"run{r}_gt_centers"] = run_slam.camera_centers(poses_gt)[frame]
-        arrays[f"run{r}_kf_frame"] = frame
-        print(json.dumps({"run": r, "seconds": time.perf_counter() - t0, "keyframes": len(ids),
-                          "ate_rmse_m": result.get("ate_rmse_m"), "loops_closed": result.get("loops_closed"),
-                          "keyframe_frames": frame.tolist()}), flush=True)
+        arrays.update(problem_arrays(system, system.map, ts, poses_gt, r))
+        print(json.dumps({"run": r, "seconds": time.perf_counter() - t0,
+                          "keyframes": len(arrays[f"run{r}_kf_frame"]), "ate_rmse_m": result.get("ate_rmse_m"),
+                          "loops_closed": result.get("loops_closed"),
+                          "keyframe_frames": arrays[f"run{r}_kf_frame"].tolist()}), flush=True)
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
     np.savez_compressed(out, runs=runs, **arrays)
     study(out, "cuda")
@@ -84,6 +114,8 @@ def study(path: str, device: str) -> None:
     dev = torch.device(device)
     cam = EUROC_CAM
     z = np.load(path)
+    if "runs" not in z:
+        z = snapshot_problem(path)
     group = launch.nccl_group() if dev.type == "cuda" else launch.gloo_group()
     with group as g:
         for r in range(int(z["runs"])):
