@@ -126,7 +126,8 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              (GBA_CONVERGED: 40 LM × 100 PCG, 5 + 40 LM), the distributed
              solve's keyframe ATE ≤ 1.1× the Schur solver's (the map's own
              keyframe ATE and the 10-LM solve's are reported, not gated:
-             ROADMAP C4); ms,
+             ROADMAP C4), and each converged solve's keyframe ATE over the
+             map's own (the converged ratio, ROADMAP C4); ms,
              collectives per LM iteration and peak memory; then
              `dryrun_multichip(1)` on the card;
 13. leftovers — runs before 12. The patch-matmul descriptors
@@ -160,6 +161,27 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              compaction work); reported: host syncs and ms per compaction,
              the tracked-frame median 30 frames before and after each
              compaction, peak memory and Hamming launches by shape;
+15. room_stages — runs before 12. The reference's own room run
+             (room_fixture.npz, tools/make_torch_room_fixture.py) stage by
+             stage on the card, each fed the reference's inputs and held to
+             its recorded outputs at the tolerances of
+             tests/test_torch_room_stages.py: (a) the insertion at frame 201
+             (`insert_keyframe_fused`: kf_id and culled keyframe equal,
+             pt_valid ≥ 99%, kf_obs_point ≥ 98%, keyframe poses within 1e-3,
+             view ids ≥ 98%); (b) the tracking step (`track_frame` on the
+             reference's extracted keypoints) on the 3 frames after it (pose
+             1e-3 rad / 1e-3, n_inliers within max(3, 2%), ok equal,
+             obs_point ≥ 95%); reported beside them, not gated: the GF
+             pick counts of both sides, and the same step on frame 236,
+             where the reference's selection picks no point because its
+             info prior is indefinite within float32 round-off (whether a
+             Cholesky fails there turns on that round-off, which the
+             card's factorisation does not share with XLA's CPU one; the
+             CPU test gates it); (c) the loop correction at frame 375
+             (`correct_loop` with the reference's optimized graph replayed:
+             poses and points 1e-4, pt_valid, kf_obs_point and the point
+             counters exact); the Hamming kernel launched at the
+             insertion's and SearchAndFuse's shapes (ROOM_STAGE_SHAPES);
 12. profile — the profiler's device duration of both kernels at 4096×800, a
              cross-check of phase 3's graph times, the kernel launches of
              the last local-map call of each mode's run (subset: phase 5's),
@@ -169,15 +191,16 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              profiler ran. It comes last, so that the profiler
              cannot slow the host's launches in the timed phases.
 
-Each path phase (4-7, 9, 10, 10b, 10c, 13, 14) sets the kernel's launch counts to 0 just before it
+Each path phase (4-7, 9, 10, 10b, 10c, 13, 14, 15) sets the kernel's launch counts to 0 just before it
 drives the path and reads them just after. Then the kernel's launches by
 shape, the seconds each phase took, the kernel table line and, last,
 {"ok": true, "device": {...}}. The
 fixtures (gf_orb_slam_tpu_torch/data/track_fixture.npz, place_fixture.npz,
-gf_modes_fixture.npz, leftovers_fixture.npz and churn_fixture.npz) are
-written from the JAX reference by tools/make_torch_fixture.py,
-tools/make_torch_place_fixture.py, tools/make_torch_gf_modes_fixture.py,
-tools/make_torch_leftovers_fixture.py and tools/make_torch_churn_fixture.py.
+gf_modes_fixture.npz, leftovers_fixture.npz, churn_fixture.npz and
+room_fixture.npz) are written from the JAX reference by
+tools/make_torch_fixture.py, tools/make_torch_place_fixture.py,
+tools/make_torch_gf_modes_fixture.py, tools/make_torch_leftovers_fixture.py,
+tools/make_torch_churn_fixture.py and tools/make_torch_room_fixture.py.
 """
 
 from __future__ import annotations
@@ -236,6 +259,8 @@ EPISODE_SLACK = 12         # phase 7: frames by which a closed episode may move 
 CHURN_FIXTURE = os.path.join(REPO, "gf_orb_slam_tpu_torch", "data", "churn_fixture.npz")
 COMPACTION_SLACK = 1       # phase 14: compactions within ±1 of the reference's
 RECOVER_SLACK = 2          # phase 14: frames to recover ≤ the reference's + 2
+ROOM_FIXTURE = os.path.join(REPO, "gf_orb_slam_tpu_torch", "data", "room_fixture.npz")
+ROOM_STAGE_SHAPES = ((1600, 1600), (2048, 1600), (4800, 1600))  # phase 15: triangulation, fusion, SearchAndFuse
 BENCH_FRAMES = 96          # the bench: 24 warm-up + 6 windows of 12 frames (a cut of length; the time limit)
 SWEEP_ARGS = ["--synthetic", "60", "--budgets", "0", "100", "--rounds", "1"]  # GF on from ~frame 45
 PROBE_FLOOR = 8            # phase 13: the probe's Sim3-RANSAC floor
@@ -769,6 +794,12 @@ def main() -> int:
     emit(rec)
     path_recs["churn"] = rec
     lap("churn")
+
+    # --- 15. the room path stage by stage on the reference's inputs ---
+    rec = run_room_stages_phase(dev) | {"device": kind, "nvidia_smi": smi}
+    emit(rec)
+    path_recs["room_stages"] = rec
+    lap("room_stages")
 
     # --- 12. the profiler's cross-check, after every timed phase ---
     emit(profile_phase(dev, gf_runs, loop) | {"device": kind, "nvidia_smi": smi})
@@ -1836,6 +1867,144 @@ def run_leftovers_phase(dev, system_run: dict, loop: dict) -> dict:
     return rec
 
 
+def run_room_stages_phase(dev) -> dict:
+    """Phase 15: the reference's room run (room_fixture.npz) stage by stage
+    on the card, each stage fed the reference's inputs. Raises on any gate."""
+    import numpy as np
+    import torch
+
+    from gf_orb_slam_tpu_torch.geometry.camera import CameraModel
+    from gf_orb_slam_tpu_torch.io_utils import map_delta, snapshot
+    from gf_orb_slam_tpu_torch.kernels import hamming
+    from gf_orb_slam_tpu_torch.gf import selection
+    from gf_orb_slam_tpu_torch.loop import loop_closing
+    from gf_orb_slam_tpu_torch.mapping import map_state as ms
+    from gf_orb_slam_tpu_torch.mapping.frame import FrameData
+    from gf_orb_slam_tpu_torch.pipeline import local_mapping, tracking
+    from gf_orb_slam_tpu_torch.solvers import pose_graph
+
+    with np.load(ROOM_FIXTURE) as zf:
+        z = {k: zf[k] for k in zf.files}
+    meta = json.loads(str(z["meta"]))
+    cam = CameraModel(**meta["camera"])
+
+    def t(a):
+        return snapshot.to_tensor(np.asarray(a), dev)
+
+    def port_map(name):
+        return snapshot.map_state_from_numpy(map_delta.decode(z, name), dev)
+
+    steps = range(len(meta["track_frames"]))
+    maps = {n: port_map(n) for n in ("ins_in", "loop_in", *(f"trk{j}_map" for j in steps))}
+    rec = {"phase": "room_stages", "entry": "pipeline.local_mapping.insert_keyframe_fused, pipeline.tracking."
+           "track_frame, loop.loop_closing.correct_loop", "fixture": os.path.relpath(ROOM_FIXTURE, REPO),
+           "insert_frame": meta["insert_frame"], "track_frames": meta["track_frames"], "loop_frame": meta["loop_frame"]}
+    bad = []
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+
+    # (a) the insertion.
+    names = ("pose", "frame_id", "timestamp", "kp_uv", "kp_octave", "kp_angle", "kp_desc", "kp_valid", "obs_point")
+    a = [z[f"ins_arg_{k}"] for k in names]
+    kw = dict(meta["insert_kw"], ba_iters=tuple(meta["insert_kw"]["ba_iters"]))
+    w0 = time.perf_counter()
+    res = local_mapping.insert_keyframe_fused(cam, maps["ins_in"], t(a[0]), int(a[1]), float(a[2]),
+                                              *[t(x) for x in a[3:]], **kw)
+    torch.cuda.synchronize()
+    ins = map_delta.agreement(ms.to_numpy(res.m), map_delta.decode(z, "ins_out")) | {
+        "ms": (time.perf_counter() - w0) * 1e3}
+    ids, wids = res.view.ids.cpu().numpy(), z["ins_view_ids"]
+    P = maps["ins_in"].pt_capacity
+    ins["view_ids"] = float(np.isin(ids[ids < P], wids[wids < P]).sum() / ((ids < P) | (wids < P)).sum())
+    ins["kf_id"], ins["culled_kf"] = int(res.kf_id), int(res.culled_kf)
+    rec["insertion"] = ins
+    if (ins["kf_id"], ins["culled_kf"]) != (int(z["ins_kf_id"]), int(z["ins_culled_kf"])) or not ins["kf_valid_equal"]:
+        bad.append("insertion: keyframe id, culled keyframe or keyframe validity")
+    if ins["pt_valid"] < 0.99 or ins["kf_obs_point"] < 0.98 or ins["kf_pose"] > 1e-3 or ins["view_ids"] < 0.98:
+        bad.append("insertion: agreement")
+
+    # (b) the tracking step on the frames after it, on the reference's
+    # keypoints; the last step, frame 236, is reported only.
+    rec["tracking"] = []
+    tk = meta["track_kw"]
+    picks = []
+    select = selection.greedy_maxlogdet_lowrank
+
+    def counted(*a, **kw):
+        res = select(*a, **kw)
+        picks.append(res.n_selected)
+        return res
+
+    selection.greedy_maxlogdet_lowrank = counted
+    try:
+        for j in steps:
+            p = f"trk{j}_"
+            uv = t(z[p + "out_frame_uv"])
+            frame = FrameData(uv=uv, uv_raw=uv, octave=t(z[p + "out_frame_octave"]), angle=t(z[p + "out_frame_angle"]),
+                              desc=t(z[p + "out_frame_desc"]), response=torch.zeros_like(uv[:, 0]),
+                              valid=t(z[p + "out_frame_valid"]))
+            view = snapshot.track_view_from_numpy(z, dev, prefix=p + "view_")
+            w0 = time.perf_counter()
+            r = tracking.track_frame(cam, maps[f"trk{j}_map"], view, frame,
+                                     *[t(z[p + k]) for k in ("last_pose", "last_obs", "last_uv", "velocity")],
+                                     float(z[p + "dt"]), t(z[p + "key"].astype(np.int64)), scale=tk["scale"],
+                                     n_levels=tk["n_levels"], gf_budget=tk["gf_budget"], use_gf=tk["use_gf"],
+                                     gf_mode=tk["gf_mode"], gf_batch=tk["gf_batch"])
+            pose, o = r.pose.cpu().numpy(), r.obs_point.cpu().numpy()
+            wpose, wo = z[p + "out_pose"], z[p + "out_obs_point"]
+            either = (o >= 0) | (wo >= 0)
+            fr = {"frame": int(z[p + "frame"]), "ms": (time.perf_counter() - w0) * 1e3,
+                  "rot_err_rad": rot_err(pose[:4], wpose[:4]), "trans_err": float(np.linalg.norm(pose[4:] - wpose[4:])),
+                  "n_inliers": int(r.n_inliers), "ref_n_inliers": int(z[p + "out_n_inliers"]), "ok": bool(r.ok),
+                  "ref_ok": bool(z[p + "out_ok"]), "obs_point": float((o == wo)[either].mean()),
+                  "points_differ": int((o != wo).sum()), "gf_picks": [int(n) for n in picks],
+                  "ref_gf_picks": int(z[p + "gf_picks"])}
+            picks.clear()
+            rec["tracking"].append(fr)
+            w = fr["ref_n_inliers"]
+            if j == steps[-1]:
+                continue
+            if (not np.isfinite(pose).all() or fr["ok"] != fr["ref_ok"] or fr["rot_err_rad"] > ROT_TOL_RAD
+                    or fr["trans_err"] > TRANS_TOL or abs(fr["n_inliers"] - w) > max(3, 0.02 * w)
+                    or fr["obs_point"] < OBS_AGREE_MIN):
+                bad.append(f"tracking frame {fr['frame']}")
+    finally:
+        selection.greedy_maxlogdet_lowrank = select
+
+    # (c) the loop correction with the reference's optimized graph replayed.
+    s_opt = t(z["loop_S_opt"])
+    optimize = pose_graph.optimize_pose_graph
+    pose_graph.optimize_pose_graph = lambda prob, n_iters=20: s_opt
+    try:
+        w0 = time.perf_counter()
+        got = loop_closing.correct_loop(maps["loop_in"], int(z["loop_query_kf"]), int(z["loop_loop_kf"]),
+                                        t(z["loop_S12"]), t(z["loop_covis"]), cam=cam)
+        torch.cuda.synchronize()
+        ms_loop = (time.perf_counter() - w0) * 1e3
+    finally:
+        pose_graph.optimize_pose_graph = optimize
+    want = map_delta.decode(z, "loop_out")
+    loop = map_delta.agreement(ms.to_numpy(got), want) | {"ms": ms_loop}
+    g = {k: v.cpu().numpy() for k, v in got._asdict().items() if k in ("pt_visible", "pt_found")}
+    loop["counters_equal"] = bool(all(np.array_equal(g[k], want[k]) for k in g))
+    rec["correct_loop"] = loop
+    if loop["kf_pose"] > 1e-4 or loop["pt_pos"] > 1e-4 or not loop["kf_valid_equal"]:
+        bad.append("correct_loop: poses or points")
+    if loop["pt_valid"] < 1.0 or loop["kf_obs_point"] < 1.0 or not loop["counters_equal"]:
+        bad.append("correct_loop: agreement")
+
+    rec["seconds"] = time.perf_counter() - t0
+    rec["hamming_launches"] = hamming.LAUNCHES
+    rec["hamming_launches_by_shape"] = {f"{nq}x{nt}": n for (nq, nt), n in sorted(hamming.LAUNCHES_BY_SHAPE.items())}
+    missing = [s_ for s_ in ROOM_STAGE_SHAPES if hamming.LAUNCHES_BY_SHAPE.get(s_, 0) == 0]
+    if missing:
+        bad.append(f"the Hamming kernel never launched at {missing}")
+    if bad:
+        raise AssertionError("room_stages phase outside its gates: " + "; ".join(bad) + f" — {rec}")
+    return rec
+
+
 def global_ba_problem(loop: dict):
     """(problem, keyframe ids, camera) of global BA over phase 7's map:
     every valid keyframe, the first fixed."""
@@ -1956,6 +2125,9 @@ def run_global_ba_phase(dev, loop: dict) -> dict:
     if not rec["final_cost"] <= GBA_COST_FACTOR * rec["schur_cost"]:
         bad.append(f"cost {rec['final_cost']} > {GBA_COST_FACTOR}× the Schur solver's {rec['schur_cost']}")
     conv_rec = rec["converged"]
+    # ROADMAP C4: converged global BA against the map it was given.
+    rec["converged_ratio"] = {k: conv_rec[f"{k}_keyframe_ate_m"] / rec["initial_keyframe_ate_m"]
+                              for k in ("distributed", "schur")}
     if not conv_rec["distributed_keyframe_ate_m"] <= GBA_ATE_FACTOR * conv_rec["schur_keyframe_ate_m"]:
         bad.append(f"converged keyframe ATE {conv_rec['distributed_keyframe_ate_m']} m > {GBA_ATE_FACTOR}× the "
                    f"converged Schur solver's {conv_rec['schur_keyframe_ate_m']} m")

@@ -126,11 +126,15 @@ def greedy_maxlogdet_lowrank(
     offs = torch.arange(B, dtype=torch.int32, device=factors.device)
 
     for _ in range(rounds):
-        L, _ = torch.linalg.cholesky_ex(cur)
+        L, info = torch.linalg.cholesky_ex(cur)
         Y = torch.linalg.solve_triangular(L, Ft, upper=False)  # (D, N·r)
         Yn = Y.reshape(D, N, r)
         G = torch.einsum("dnr,dns->nrs", Yn, Yn)
-        gains = _logdet_eye_plus(G)
+        # A non-PD accumulated matrix (an indefinite info prior in float32):
+        # the reference's Cholesky returns NaN, so its gains are NaN and the
+        # round, and every later one, takes nothing. cholesky_ex returns a
+        # finite partial factor instead, whose gains would pick.
+        gains = torch.where(info == 0, _logdet_eye_plus(G), torch.nan)
         gains = torch.where(valid & ~selected[:N], gains, -torch.inf)
         if B == 1:
             picks = torch.argmax(gains)[None]

@@ -349,7 +349,34 @@ def track_frame_fused(
     (with the wide-radius retry) → local-map tracking (+ GF selection, with
     the random modes' `gf_noise`) → velocity update → counter deltas. Runs on
     the device of `img`."""
-    frame = make_frame(img, cam, orb_cfg)
+    return track_frame(
+        cam, m, view, make_frame(img, cam, orb_cfg), last_pose, last_obs, last_uv, velocity, dt, key,
+        scale=scale, n_levels=n_levels, gf_budget=gf_budget, use_gf=use_gf, gf_mode=gf_mode, gf_batch=gf_batch,
+        gf_noise=gf_noise,
+    )
+
+
+def track_frame(
+    cam: CameraModel,
+    m: ms.MapState,
+    view: TrackView,
+    frame: FrameData,
+    last_pose: torch.Tensor,
+    last_obs: torch.Tensor,
+    last_uv: torch.Tensor,
+    velocity: torch.Tensor,
+    dt,
+    key: torch.Tensor,
+    scale: float = 1.2,
+    n_levels: int = 8,
+    gf_budget: int = 100,
+    use_gf: bool = False,
+    gf_mode: str = "subset",
+    gf_batch: int = 1,
+    gf_noise: torch.Tensor | None = None,
+) -> FusedTrackResult:
+    """`track_frame_fused` after its ORB extraction: the step on a frame's
+    extracted keypoints."""
     pose_pred = se3.compose(velocity, last_pose)
 
     r = track_with_motion_model(

@@ -165,16 +165,35 @@ def gf_factors(rng, n=400):
     return F, valid, (prior_f.T @ prior_f).astype(np.float32)
 
 
-@pytest.mark.parametrize("batch,with_prior", [(10, True), (1, True), (10, False)])
+def prior_with_min_eigenvalue(rng, F, valid, lam_min):
+    """An info prior whose seeded matrix (PRIOR_EPS·I + prior / s, s the
+    factors' normalization) has smallest eigenvalue lam_min."""
+    _, s = tsel.normalize_factors(torch.from_numpy(F), torch.from_numpy(valid))
+    Q = np.linalg.qr(rng.normal(size=(7, 7)))[0]
+    p = float(s) * (Q * np.asarray([lam_min - tsel.PRIOR_EPS, 0.5, 1, 2, 4, 8, 16])) @ Q.T
+    return ((p + p.T) / 2).astype(np.float32)
+
+
+@pytest.mark.parametrize("batch,with_prior", [(10, True), (1, True), (10, False), (10, -2e-5), (1, -2e-5),
+                                              (10, 1e-3), (1, 1e-3)])
 def test_greedy_maxlogdet_lowrank(rng, batch, with_prior):
+    """with_prior: True a random PSD prior, False none, a number a prior
+    whose seeded matrix has that smallest eigenvalue. The room path's prior
+    is often indefinite within float32 round-off (its quaternion-scale
+    direction is null); the reference's Cholesky then returns NaN and its
+    greedy picks nothing, at batch 1 (argmax of NaN gains) and at batch 10
+    alike, and the port must too."""
     F, valid, prior = gf_factors(rng)
+    if isinstance(with_prior, float):
+        prior = prior_with_min_eigenvalue(rng, F, valid, with_prior)
     fj, ft = both(F)
     vj, vt = both(valid)
-    pj, pt = both(prior) if with_prior else (None, None)
+    pj, pt = both(prior) if with_prior is not False else (None, None)
     sj = jsel.greedy_maxlogdet_lowrank(fj, vj, k=100, batch=batch, info_prior=pj)
     st = tsel.greedy_maxlogdet_lowrank(ft, vt, k=100, batch=batch, info_prior=pt)
     eq(sj.selected, st.selected)
-    assert int(st.n_selected) == int(sj.n_selected) == 100
+    n = 0 if isinstance(with_prior, float) and with_prior < 0 else 100
+    assert int(st.n_selected) == int(sj.n_selected) == n
     np.testing.assert_allclose(float(st.logdet), float(sj.logdet), rtol=1e-4)
     np.testing.assert_allclose(st.info_total.numpy(), np.asarray(sj.info_total), rtol=1e-3,
                                atol=1e-3 * float(np.abs(np.asarray(sj.info_total)).max()))

@@ -2,10 +2,13 @@
 module of gf_orb_slam_tpu_torch, in a fresh interpreter where importing JAX
 or the JAX package fails, must succeed and leave neither loaded."""
 
+import ast
 import json
 import os
 import subprocess
 import sys
+
+import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -45,5 +48,21 @@ def test_port_imports_without_jax():
     for mod in ("gf.active_matching", "gf.selection", "geometry.pwls", "pipeline.tracking", "parallel.global_ba",
                 "parallel.launch", "io_utils.settings", "io_utils.datasets", "io_utils.images", "io_utils.prefetch",
                 "io_utils.stage_probe", "io_utils.loop_eval", "io_utils.reloc_eval", "io_utils.viz", "ops.boxlog",
+                "io_utils.map_delta",
                 "entry", "bench", "batch_sweep"):
         assert f"gf_orb_slam_tpu_torch.{mod}" in names, mod
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py", "tools/torch_loop_recall.py"])
+def test_port_scripts_never_import_jax(script):
+    """The scripts that drive only the port name neither JAX nor the JAX
+    package in any import statement, module-level or inside a function."""
+    with open(os.path.join(REPO, script)) as f:
+        tree = ast.parse(f.read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.append(node.module)
+    assert names and not [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "gf_orb_slam_tpu")], names

@@ -3,6 +3,8 @@
 
     python tools/torch_room_ba_study.py record [--runs 2] [--out chiprun_out/room_maps.npz]
     python tools/torch_room_ba_study.py study PATH [--device cpu]
+    python tools/torch_room_ba_study.py edges PATH [PATH ...] [--out F.json]
+    python tools/torch_room_ba_study.py ablate PATH [PATH ...]
 
 `record` runs the 420-frame room circuit (`run_slam.room_config()`, the
 packaged 1M-word vocabulary, scene seed 0) --runs times on the first CUDA
@@ -25,6 +27,27 @@ biased optimum are checked beside them: `pyramid_exact` re-solves (Schur
 pyramid's centre-aligned resizes, in place of the reference's
 `xy · 1.2^level`; `undistort_roundtrip_px` is the largest
 pixel error of the camera's undistortion, distorted back, over the image.
+
+`edges` holds each map's observations against the ground truth: every
+point with >= 2 observing keyframes is re-triangulated (multi-view DLT)
+from its observations under the ground-truth poses of its observers, and an
+edge counts as bad where its reprojection error there exceeds 5.991·σ² of
+its octave. It reports the map's keyframe ATE and the bad share of its
+edges, split by the point's observation count, by octave, by whether the
+point's observers span the loop (first and last observer >= 10 keyframes
+apart, SlamConfig.loop_min_kf_gap) and by duplicate edges (one keyframe
+holding one point in two slots). PATH is anything `study` reads, or the
+room fixture (gf_orb_slam_tpu_torch/data/room_fixture.npz: its final map).
+One JSON line per map; --out also writes them as one JSON list.
+
+`ablate` asks whether a class of edges moves the converged optimum: per map
+the Schur solve (5 + 40 LM) with all edges, and without each class in turn
+(the edges `edges` calls bad, the duplicate slots of a (keyframe, point)
+but its finest octave, the loop-spanning edges, octaves >= 3, the two
+initial keyframes' rows), each as its keyframe ATE over the map's; and the
+same solve started from the ground truth (its poses in the map's gauge, the
+points solved with the poses held), with the Huber cost there and at the
+solve's end. CPU, one JSON line per map.
 """
 
 from __future__ import annotations
@@ -56,6 +79,7 @@ def problem_arrays(system, m, ts, poses_gt, r: int) -> dict:
     arrays = {f"run{r}_{f}": getattr(prob, f).cpu().numpy() for f in FIELDS}
     arrays[f"run{r}_gt_centers"] = run_slam.camera_centers(poses_gt)[frame]
     arrays[f"run{r}_kf_frame"] = frame
+    arrays[f"run{r}_kf_ids"] = np.asarray(ids)
     return arrays
 
 
@@ -113,9 +137,7 @@ def study(path: str, device: str) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device(device)
     cam = EUROC_CAM
-    z = np.load(path)
-    if "runs" not in z:
-        z = snapshot_problem(path)
+    z = map_problem_arrays(path)
     group = launch.nccl_group() if dev.type == "cuda" else launch.gloo_group()
     with group as g:
         for r in range(int(z["runs"])):
@@ -155,6 +177,176 @@ def study(path: str, device: str) -> None:
                 "max_shift_px": float((exact.obs_uv - prob.obs_uv)[active0].abs().max())}
             print(json.dumps(rec), flush=True)
     print(json.dumps({"undistort_roundtrip_px": undistort_roundtrip_px(cam)}), flush=True)
+
+
+def map_problem_arrays(path: str) -> dict:
+    """The `record` arrays of PATH (a `record` file or a saved map)."""
+    import numpy as np
+
+    z = np.load(path)
+    return {k: z[k] for k in z.files} if "runs" in z else snapshot_problem(path)
+
+
+def edge_classes(arrays: dict, r: int, cam, loop_gap: int = 10, bad_mask: bool = False):
+    """Run r's edges held against the ground truth (see the module
+    docstring): the share of edges over 5.991·σ² at the point re-triangulated
+    under the ground-truth poses, in total and by class."""
+    import numpy as np
+    import torch
+
+    from gf_orb_slam_tpu_torch import run_slam
+    from gf_orb_slam_tpu_torch.geometry import se3
+    from gf_orb_slam_tpu_torch.io_utils import evaluation, synthetic
+
+    poses = arrays[f"run{r}_poses"]
+    obs_point, obs_uv, obs_w = arrays[f"run{r}_obs_point"], arrays[f"run{r}_obs_uv"], arrays[f"run{r}_obs_w"]
+    gt_c = arrays[f"run{r}_gt_centers"]
+    frames = arrays[f"run{r}_kf_frame"]
+    _, poses_gt = synthetic.circuit_trajectory(ROOM_FRAMES, fps=cam.fps, radius=4.0,
+                                               revs=run_slam.circuit_revs(ROOM_FRAMES))
+    C = poses.shape[0]
+    centers = run_slam.camera_centers(poses).astype(np.float64)
+    s, R, t = evaluation.umeyama_alignment(centers, gt_c.astype(np.float64))
+    kf_ate = float(np.sqrt((np.linalg.norm((s * (R @ centers.T)).T + t - gt_c, axis=1) ** 2).mean()))
+    # Ground-truth projection matrices K [R | t] of the keyframes.
+    K = np.array([[cam.fx, 0, cam.cx], [0, cam.fy, cam.cy], [0, 0, 1]])
+    Pm = K @ se3.pose_matrix(torch.from_numpy(poses_gt[frames].astype(np.float64))).numpy()[:, :3]  # (C, 3, 4)
+    c_idx, n_idx = np.nonzero((obs_point >= 0) & arrays[f"run{r}_point_valid"][np.maximum(obs_point, 0)])
+    pid = obs_point[c_idx, n_idx]
+    uv = obs_uv[c_idx, n_idx].astype(np.float64)
+    sigma2 = 1.0 / obs_w[c_idx, n_idx].astype(np.float64)
+    octave = np.rint(np.log(sigma2) / np.log(1.2 ** 2)).astype(int)
+    pts, inv = np.unique(pid, return_inverse=True)
+    n_obs = np.bincount(inv)
+    first = np.full(pts.size, C, int)
+    last = np.full(pts.size, -1, int)
+    np.minimum.at(first, inv, c_idx)
+    np.maximum.at(last, inv, c_idx)
+    kf_id = arrays.get(f"run{r}_kf_ids", np.arange(C))
+    span = (kf_id[last] - kf_id[first]) >= loop_gap
+    dup_pair = np.zeros(c_idx.size, bool)
+    key = c_idx.astype(np.int64) * (pid.max() + 1) + pid
+    u, cnt = np.unique(key, return_counts=True)
+    dup_pair[np.isin(key, u[cnt > 1])] = True
+    # Multi-view DLT per point, rows padded with zeros to the largest count.
+    order = np.argsort(inv, kind="stable")
+    slot = np.arange(order.size) - np.repeat(np.cumsum(n_obs) - n_obs, n_obs)
+    A = np.zeros((pts.size, 2 * n_obs.max(), 4))
+    P_e = Pm[c_idx[order]]
+    A[inv[order], 2 * slot] = uv[order, :1] * P_e[:, 2] - P_e[:, 0]
+    A[inv[order], 2 * slot + 1] = uv[order, 1:] * P_e[:, 2] - P_e[:, 1]
+    X = np.linalg.svd(A)[2][:, -1]                                                 # (points, 4)
+    X = X / np.where(np.abs(X[:, 3:]) < 1e-12, 1e-12, X[:, 3:])                   # the null vector's sign is free
+    Xh = X[inv]
+    proj = np.einsum("eij,ej->ei", Pm[c_idx], Xh)
+    z = proj[:, 2]
+    err2 = np.sum((proj[:, :2] / np.where(np.abs(z) < 1e-12, 1e-12, z)[:, None] - uv) ** 2, axis=1)
+    multi = n_obs[inv] >= 2
+    bad = ((err2 > 5.991 * sigma2) | (z <= 0)) & multi
+    if bad_mask:  # the bad edges as (keyframe row, slot) indices
+        return c_idx[bad], n_idx[bad]
+
+    def share(mask) -> dict:
+        m = mask & multi
+        return {"edges": int(m.sum()), "bad": int((bad & m).sum()),
+                "bad_share": round(float((bad & m).sum() / max(m.sum(), 1)), 5)}
+
+    n_e = n_obs[inv]
+    by_count = {"2": n_e == 2, "3": n_e == 3, "4-5": (n_e >= 4) & (n_e <= 5), "6-9": (n_e >= 6) & (n_e <= 9),
+                ">=10": n_e >= 10}
+    return {"run": r, "keyframes": C, "points_multi": int((n_obs >= 2).sum()), "keyframe_ate_m": kf_ate,
+            "all": share(np.ones_like(bad)),
+            "by_obs_count": {k: share(v) for k, v in by_count.items()},
+            "by_octave": {str(o): share(octave == o) for o in range(8)},
+            "loop_span": {"spans": share(span[inv]), "within": share(~span[inv])},
+            "duplicate": {"duplicate": share(dup_pair), "single": share(~dup_pair)}}
+
+
+def ablate(path: str, cam) -> dict:
+    """See the module docstring: `ablate` on one map (run 0)."""
+    import numpy as np
+    import torch
+
+    from gf_orb_slam_tpu_torch import run_slam
+    from gf_orb_slam_tpu_torch.geometry import quat, se3
+    from gf_orb_slam_tpu_torch.io_utils import evaluation, synthetic
+    from gf_orb_slam_tpu_torch.solvers import local_ba
+
+    a = map_problem_arrays(path)
+    prob = local_ba.BAProblem(**{f: torch.from_numpy(a[f"run0_{f}"]) for f in FIELDS})
+    obs, w, ids = a["run0_obs_point"], a["run0_obs_w"], a.get("run0_kf_ids", np.arange(len(a["run0_poses"])))
+    gt = a["run0_gt_centers"].astype(np.float64)
+
+    def ate(poses) -> float:
+        c = run_slam.camera_centers(poses).astype(np.float64)
+        s, R, t = evaluation.umeyama_alignment(c, gt)
+        return float(np.sqrt((np.linalg.norm((s * (R @ c.T)).T + t - gt, axis=1) ** 2).mean()))
+
+    def solve(p):
+        return local_ba.bundle_adjust(cam, p, iters_stage1=5, iters_stage2=40)
+
+    def without(drop):
+        o = np.where(drop, -1, obs).astype(np.int32)
+        return round(ate(solve(prob._replace(obs_point=torch.from_numpy(o), obs_w=torch.from_numpy(
+            np.where(o >= 0, w, 0).astype(np.float32)))).poses.numpy()) / m, 4)
+
+    m = ate(prob.poses.numpy())
+    valid = (obs >= 0) & a["run0_point_valid"][np.maximum(obs, 0)]
+    octave = np.rint(np.log(1 / np.where(valid, w, 1)) / np.log(1.44)).astype(int)
+    dup = np.zeros_like(valid)
+    for c in range(obs.shape[0]):  # every slot of a (keyframe, point) but its finest octave
+        order = np.argsort(np.where(valid[c], octave[c], 99), kind="stable")
+        _, first = np.unique(obs[c, order], return_index=True)
+        keep = np.zeros(obs.shape[1], bool)
+        keep[order[first]] = True
+        dup[c] = valid[c] & ~keep
+    cc, nn = np.nonzero(valid)
+    pid = obs[cc, nn]
+    lo = np.full(pid.max() + 1, 1 << 30)
+    hi = np.full(pid.max() + 1, -1)
+    np.minimum.at(lo, pid, ids[cc])
+    np.maximum.at(hi, pid, ids[cc])
+    span = np.zeros_like(valid)
+    span[cc, nn] = (hi - lo)[pid] >= 10
+    bad = np.zeros_like(valid)
+    bad[edge_classes(a, 0, cam, bad_mask=True)] = True
+    rec = {"map": os.path.basename(path), "keyframe_ate_m": m, "all": without(np.zeros_like(valid)),
+           "without_bad": without(bad), "without_duplicates": without(dup), "without_loop_span": without(span),
+           "without_octave_ge3": without(valid & (octave >= 3)),
+           "without_initial_keyframes": without(np.arange(obs.shape[0])[:, None] < 2)}
+    # The ground truth in the map's gauge: x_gt = s R x_map + t, so T_cw_map = T_cw_gt ∘ (s R, t) / s.
+    _, poses_gt = synthetic.circuit_trajectory(ROOM_FRAMES, fps=cam.fps, radius=4.0,
+                                               revs=run_slam.circuit_revs(ROOM_FRAMES))
+    s_, R_, t_ = evaluation.umeyama_alignment(run_slam.camera_centers(prob.poses.numpy()).astype(np.float64), gt)
+    T = se3.pose_matrix(torch.from_numpy(poses_gt[a["run0_kf_frame"]].astype(np.float64))).numpy()
+    P_gt = torch.cat([quat.r2q(torch.from_numpy(T[:, :3, :3] @ R_).float()),
+                      torch.from_numpy((T[:, :3, :3] @ t_ + T[:, :3, 3]) / s_).float()], 1)
+    pts = local_ba.bundle_adjust(cam, prob._replace(poses=P_gt, fixed=torch.ones_like(prob.fixed)),
+                                 iters_stage1=5, iters_stage2=20).points
+    active0 = (prob.obs_point >= 0) & (prob.obs_w > 0)
+
+    def cost(p, x):
+        return float(local_ba._cost(cam, p, x, prob.obs_uv, prob.obs_point, prob.obs_w, active0))
+
+    from_map, from_gt = solve(prob), solve(prob._replace(poses=P_gt, points=pts))
+    rec.update(cost_at_ground_truth=cost(P_gt, pts), cost_solved=cost(from_map.poses, from_map.points),
+               cost_solved_from_ground_truth=cost(from_gt.poses, from_gt.points),
+               from_ground_truth=round(ate(from_gt.poses.numpy()) / m, 4))
+    return rec
+
+
+def edges(paths: list[str], out: str | None) -> None:
+    from gf_orb_slam_tpu_torch.geometry.camera import EUROC_CAM
+
+    rows = []
+    for path in paths:
+        arrays = map_problem_arrays(path)
+        for r in range(int(arrays["runs"])):
+            rows.append({"map": os.path.basename(path), **edge_classes(arrays, r, EUROC_CAM)})
+            print(json.dumps(rows[-1]), flush=True)
+    if out:
+        with open(out, "w") as f:
+            json.dump(rows, f, indent=1)
 
 
 def pyramid_exact_uv(cam, obs_uv, obs_w, n_levels: int = 8, scale: float = 1.2):
@@ -201,9 +393,21 @@ def main(argv=None) -> int:
     b = sub.add_parser("study")
     b.add_argument("path")
     b.add_argument("--device", default="cuda")
+    c = sub.add_parser("edges")
+    c.add_argument("paths", nargs="+")
+    c.add_argument("--out")
+    d = sub.add_parser("ablate")
+    d.add_argument("paths", nargs="+")
     args = ap.parse_args(argv)
     if args.cmd == "record":
         record(args.runs, args.out)
+    elif args.cmd == "edges":
+        edges(args.paths, args.out)
+    elif args.cmd == "ablate":
+        from gf_orb_slam_tpu_torch.geometry.camera import EUROC_CAM
+
+        for path in args.paths:
+            print(json.dumps(ablate(path, EUROC_CAM)), flush=True)
     else:
         study(args.path, args.device)
     return 0

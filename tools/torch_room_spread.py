@@ -10,6 +10,7 @@ reference's, and the studies that located its outliers.
     python tools/torch_room_spread.py ref-ba --map PATH --out F.json
     python tools/torch_room_spread.py correct-study --map DUMP --out F.json
     python tools/torch_room_spread.py verify-study --map DUMP [--draws 64] --out F.json
+    python tools/torch_room_spread.py c4-table --out DIR
 
 Each run is the 420-frame room circuit (radtan EuRoC camera, scene seed 0,
 keyframe cadence 6, GF subset at budget 100, the packaged 1M-word
@@ -46,11 +47,17 @@ PATH` saves the first loop correction's map, BoW database, Sim3 and result;
 kept) against the ground truth, and `verify-study` replays its loop
 verification with fresh RANSAC draws on both sides.
 
-`all` runs the reference at every seed (seed 0 saving samples and map),
-then the port at every seed and once injected, --jobs at a time, then
-`ref-ba`, and writes `<out>/*.json` and `<out>/summary.json`. A reference
-run takes 7-11 minutes and a port run 18-24 (one thread each, six at
-once); `all` about 30 minutes.
+`all` runs the reference and the port at every seed, each saving its map
+(seed 0 of the reference also its samples), and the port once injected,
+--jobs at a time; then solves every saved map with both sides' solvers
+(`ref-ba`; `tools/torch_room_ba_study.py study MAP --device cpu`) and holds
+its edges against the ground truth (`torch_room_ba_study.py edges`), and
+writes `<out>/*.json`, `<out>/summary.json` and `<out>/c4_table.json`. A
+reference run takes 7-11 minutes and a port run 18-24 (one thread each,
+six at once); `all` about 45 minutes. `c4-table --out DIR` rebuilds the
+table from a directory `all` wrote: per map its keyframe ATE, the
+converged keyframe ATE of each solver and its ratio to the map's, its
+keyframes, points and edges, and its bad-edge share.
 """
 
 from __future__ import annotations
@@ -547,10 +554,10 @@ def port(seed: int, n: int, inject: str | None, ref_json: str | None, ref_frames
 
 
 # --------------------------------------------------------------------- all runs
-def run_child(argv: list[str], log: str) -> int:
+def run_child(argv: list[str], log: str, script: str = os.path.abspath(__file__)) -> int:
     env = dict(os.environ, **ONE_THREAD)
     with open(log, "w") as f:
-        return subprocess.run([sys.executable, os.path.abspath(__file__), *argv], env=env, stdout=f,
+        return subprocess.run([sys.executable, script, *argv], env=env, stdout=f,
                               stderr=subprocess.STDOUT, cwd=REPO).returncode
 
 
@@ -558,24 +565,32 @@ def run_all(seeds: list[int], n: int, jobs: int, out: str) -> None:
     os.makedirs(out, exist_ok=True)
     samples = os.path.join(out, "ref_init_samples.npz")
     p = lambda name: os.path.join(out, name)  # noqa: E731
-    ref_jobs = [["ref", "--seed", str(s), "--frames", str(n), "--out", p(f"ref_{s}.json")]
-                + (["--samples", samples, "--save-map", p("ref_map.npz")] if s == 0 else []) for s in seeds]
+    ref_jobs = [["ref", "--seed", str(s), "--frames", str(n), "--save-map", p(f"ref_map_{s}.npz"),
+                 "--out", p(f"ref_{s}.json")] + (["--samples", samples] if s == 0 else []) for s in seeds]
     port_jobs = [["port", "--seed", str(s), "--frames", str(n), "--ref-json", p("ref_0.json"),
-                  "--out", p(f"port_{s}.json")] for s in seeds]
+                  "--save-map", p(f"port_map_{s}.npz"), "--out", p(f"port_{s}.json")] for s in seeds]
     inject_job = ["port", "--seed", "0", "--frames", str(n), "--inject", samples, "--ref-frames",
                   "--ref-json", p("ref_0.json"), "--out", p("port_injected.json")]
+    study = os.path.join(REPO, "tools", "torch_room_ba_study.py")
+    maps = [(side, s) for side in ("ref", "port") for s in seeds]
     with ThreadPoolExecutor(jobs) as ex:
         first = ex.submit(run_child, ref_jobs[0], p("ref_0.log"))
         rest = [ex.submit(run_child, j, p(j[-1].rsplit("/", 1)[-1].replace(".json", ".log")))
                 for j in ref_jobs[1:] + port_jobs]
         first.result()
         rest.append(ex.submit(run_child, inject_job, p("port_injected.log")))
-        rest.append(ex.submit(run_child, ["ref-ba", "--map", p("ref_map.npz"), "--frames", str(n),
-                                          "--out", p("ref_ba.json")], p("ref_ba.log")))
         codes = [f.result() for f in rest]
+        solves = [ex.submit(run_child, ["ref-ba", "--map", p(f"{side}_map_{s}.npz"), "--frames", str(n),
+                                        "--out", p(f"refba_{side}_{s}.json")], p(f"refba_{side}_{s}.log"))
+                  for side, s in maps]
+        solves += [ex.submit(run_child, ["study", p(f"{side}_map_{s}.npz"), "--device", "cpu"],
+                             p(f"study_{side}_{s}.log"), script=study) for side, s in maps]
+        codes += [f.result() for f in solves]
+    codes.append(run_child(["edges", *[p(f"{side}_map_{s}.npz") for side, s in maps], "--out", p("edges.json")],
+                           p("edges.log"), script=study))
     summary = []
     for name in sorted(os.listdir(out)):
-        if name.endswith(".json") and name not in ("summary.json", "ref_ba.json"):
+        if name.endswith(".json") and name.startswith(("ref_", "port_")):
             with open(p(name)) as f:
                 r = json.load(f)
             summary.append({k: r.get(k) for k in ("side", "seed", "injected", "ate_rmse_m", "keyframe_ate_m",
@@ -585,11 +600,73 @@ def run_all(seeds: list[int], n: int, jobs: int, out: str) -> None:
             print(json.dumps(summary[-1]), flush=True)
     with open(p("summary.json"), "w") as f:
         json.dump({"runs": summary, "exit_codes": codes}, f, indent=1)
+    c4_table(out)
+
+
+def c4_table(out: str) -> list:
+    """Per saved map of `all`: its keyframe ATE, each converged solve's
+    (the reference's Schur 5 + 40 and distributed 5 × 25, the port's Schur
+    5 + 40 and distributed 40 × 100) with its ratio to the map's, its size
+    and its bad-edge share against the ground truth; then each side's
+    ratios and their ranges. Each row also names the map's keyframe family:
+    whether a valid keyframe lies at frames 101-104 (`kf_at_101_104`), and
+    the valid keyframes' frames either side of frame 100 (`kf_around_100`).
+    Writes <out>/c4_table.json."""
+    import numpy as np
+
+    p = lambda name: os.path.join(out, name)  # noqa: E731
+    edges = {}
+    if os.path.exists(p("edges.json")):
+        with open(p("edges.json")) as f:
+            edges = {e["map"]: e for e in json.load(f)}
+    rows = []
+    for side in ("ref", "port"):
+        for name in sorted(os.listdir(out)):
+            if not (name.startswith(f"refba_{side}_") and name.endswith(".json")):
+                continue
+            seed = int(name[len(f"refba_{side}_"):-5])
+            with open(p(name)) as f:
+                rb = json.load(f)
+            with open(p(f"study_{side}_{seed}.log")) as f:
+                st = next(json.loads(line) for line in f if line.startswith('{"run"'))
+            m = rb["map"]["keyframe_ate_m"]
+
+            def cell(v):
+                return None if v is None else {"keyframe_ate_m": v, "ratio": v / m}
+
+            e = edges.get(f"{side}_map_{seed}.npz", {})
+            with np.load(p(f"{side}_map_{seed}.npz")) as z:
+                frames = np.sort(z["map_kf_frame_id"][z["map_kf_valid"]])
+            around = np.searchsorted(frames, 100, side="right")
+            rows.append({"side": side, "seed": seed, "keyframes": rb["keyframes"], "points": rb["points"],
+                         "edges": rb["edges"], "map_keyframe_ate_m": m,
+                         "kf_at_101_104": bool(((frames >= 101) & (frames <= 104)).any()),
+                         "kf_around_100": [int(x) for x in frames[max(around - 1, 0):around + 1]],
+                         "ref_schur_5_40": cell(rb["schur_5_40"]["keyframe_ate_m"]),
+                         "ref_dist_5x25": cell(rb["dist_5x25"]["keyframe_ate_m"]),
+                         "port_schur_5_40": cell(st["schur_5_40"]["keyframe_ate_m"]),
+                         "port_dist_40x100": cell(st["dist_40x100"]["keyframe_ate_m"]),
+                         "bad_edge_share": e.get("all", {}).get("bad_share")})
+    spread = {}
+    for side in ("ref", "port"):
+        ratios = [r[k]["ratio"] for r in rows if r["side"] == side
+                  for k in ("ref_schur_5_40", "port_schur_5_40", "port_dist_40x100") if r[k]]
+        spread[side] = {"ratios": len(ratios), "lowered": sum(x < 1 for x in ratios),
+                        "range": [min(ratios), max(ratios)] if ratios else None,
+                        "maps": sum(r["side"] == side for r in rows),
+                        "maps_without_kf_at_101_104": sum(r["side"] == side and not r["kf_at_101_104"]
+                                                          for r in rows)}
+    with open(p("c4_table.json"), "w") as f:
+        json.dump({"rows": rows, "spread": spread}, f, indent=1)
+    for r in rows:
+        print(json.dumps(r), flush=True)
+    print(json.dumps(spread), flush=True)
+    return rows
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("mode", choices=["all", "ref", "port", "ref-ba", "correct-study", "verify-study"])
+    ap.add_argument("mode", choices=["all", "ref", "port", "ref-ba", "correct-study", "verify-study", "c4-table"])
     ap.add_argument("--draws", type=int, default=32, help="verify-study: RANSAC draws per side")
     ap.add_argument("--map", help="ref-ba: a map snapshot")
     ap.add_argument("--seed", type=int, default=0)
@@ -609,6 +686,9 @@ def main() -> None:
     args = ap.parse_args()
     if args.mode == "all":
         run_all(args.seeds, args.frames, args.jobs, args.out)
+        return
+    if args.mode == "c4-table":
+        c4_table(args.out)
         return
     if args.mode == "ref-ba":
         rec = ref_global_ba(args.map, args.frames)
