@@ -107,3 +107,85 @@ def events_from_array(a) -> list[dict]:
     """The inverse of events_to_array."""
     return [{"kf": int(r[0]), "frame": int(r[1]), "opportunity": bool(r[2]), "closed": bool(r[3]),
              "matched_kf": None if r[4] < 0 else int(r[4])} for r in np.asarray(a).reshape(-1, 5)]
+
+
+# Operating points the gate study sweeps offline (tools/loop_gate_study.py --analyze).
+SWEEP_CONSISTENCY = (2, 3)
+SWEEP_RANSAC = (8, 10, 13, 15, 20)
+SWEEP_REFINE = (10, 15, 20, 25)
+
+
+def gate_sweep(runs: list[dict]) -> dict:
+    """The loop-gate study's offline sweep over recorded funnels (runs with
+    `episodes` and `gate_events`, probe mode): per (consistency, RANSAC
+    floor, refine floor) the episodes whose keyframes (±1) had a
+    ground-truth-true candidate event passing all three, and the false
+    events passing them. An episode is a dict with its keyframes `kfs`."""
+    cand_events = [dict(ev, run=i) for i, r in enumerate(runs) for ev in r["gate_events"] if "cand" in ev]
+    n_episodes = sum(len(r["episodes"]) for r in runs)
+
+    def passes(ev, cons, t_ransac, t_refine):
+        return ev["streak"] >= cons and ev["n_ransac"] >= t_ransac and ev["n_opt"] >= t_refine
+
+    table = []
+    for cons in SWEEP_CONSISTENCY:
+        for t_r in SWEEP_RANSAC:
+            for t_o in SWEEP_REFINE:
+                closed = sum(
+                    any(ev["run"] == i and any(abs(ev["kf"] - k) <= 1 for k in ep["kfs"]) and ev["gt_true"]
+                        and passes(ev, cons, t_r, t_o) for ev in cand_events)
+                    for i, r in enumerate(runs) for ep in r["episodes"])
+                false = sum(1 for ev in cand_events if ev["gt_true"] is False and passes(ev, cons, t_r, t_o))
+                table.append({"consistency": cons, "ransac_th": t_r, "refine_th": t_o, "episodes_closed": closed,
+                              "episodes": n_episodes, "recall": closed / n_episodes if n_episodes else None,
+                              "false_accepts": false})
+    return {
+        "n_runs": len(runs),
+        "n_episodes": n_episodes,
+        "live_closed_episodes": sum(1 for r in runs for ep in r["episodes"] if ep["closed"]),
+        "n_candidate_events": len(cand_events),
+        "n_gt_true_events": sum(1 for e in cand_events if e["gt_true"]),
+        "n_gt_false_events": sum(1 for e in cand_events if e["gt_true"] is False),
+        "note": ("offline projection over shadow-verified funnels recorded at ransac_floor=8 under the shipped "
+                 "live decision (>=20/>=20 @ streak>=3); episode<->event association by keyframe id +/-1"),
+        "operating_points": table,
+    }
+
+
+def _rot(q) -> np.ndarray:
+    w, x, y, z = np.asarray(q, np.float64) / np.linalg.norm(q)
+    return np.array([[1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+                     [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+                     [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]])
+
+
+def _center(pose_cw) -> np.ndarray:
+    return -_rot(pose_cw[:4]).T @ np.asarray(pose_cw[4:7], np.float64)
+
+
+def map_scale_ratio(query_kf: int, cand_kf: int, kf_pose, kf_frame_id, kf_valid, poses_gt) -> float:
+    """The map's scale at the query keyframe over that at the candidate:
+    each keyframe's distance to the valid keyframe nearest it in frames,
+    over the ground truth's distance between the two frames. A loop Sim3
+    (candidate camera → query camera) of the right scale has this scale."""
+    fid, valid = np.asarray(kf_frame_id), np.flatnonzero(np.asarray(kf_valid))
+
+    def scale(k) -> float:
+        j = min((j for j in valid if j != k), key=lambda j: abs(int(fid[j]) - int(fid[k])))
+        gt = np.linalg.norm(_center(poses_gt[fid[k]]) - _center(poses_gt[fid[j]]))
+        return float(np.linalg.norm(_center(kf_pose[k]) - _center(kf_pose[j])) / gt)
+
+    return scale(query_kf) / scale(cand_kf)
+
+
+def sim3_against_ground_truth(S12, query_kf: int, cand_kf: int, kf_pose, kf_frame_id, kf_valid, poses_gt) -> dict:
+    """A loop Sim3 (candidate camera → query camera) against the ground
+    truth: its rotation error to the ground truth's relative rotation of the
+    two keyframes' frames (degrees), its scale, `map_scale_ratio` and the
+    scale over that ratio."""
+    fid = np.asarray(kf_frame_id)
+    R_gt = _rot(poses_gt[fid[query_kf]][:4]) @ _rot(poses_gt[fid[cand_kf]][:4]).T
+    cos = (np.trace(_rot(S12[:4]).T @ R_gt) - 1) / 2
+    ratio = map_scale_ratio(query_kf, cand_kf, kf_pose, kf_frame_id, kf_valid, poses_gt)
+    return {"rotation_error_deg": float(np.rad2deg(np.arccos(np.clip(cos, -1, 1)))), "scale": float(S12[7]),
+            "map_scale_ratio": ratio, "scale_error": float(S12[7]) / ratio}

@@ -9,7 +9,8 @@ port takes Horn's quaternion method, the reference an SVD); refined PnP and
 Sim3 poses 1e-4 (rotation 1e-4 rad), inlier counts within max(3, 2%) of the
 reference's; the essential graph's edges exact, its measurements 1e-5; the
 12-keyframe pose graph after 20 iterations 1e-3 (on measurements the
-reference's tangents survive; see the last two tests)."""
+reference's tangents survive) or exact (where they overflow and the
+reference rejects every step; see the last tests)."""
 
 import jax
 import jax.numpy as jnp
@@ -333,20 +334,53 @@ def test_optimize_pose_graph_small(rng):
 
 
 def test_reference_pose_graph_is_a_no_op_on_consistent_static_edges(rng):
-    """Reference fault (ROADMAP C), shown, not mirrored: with measurements
-    taken from the current poses (as correct_loop takes them), float32
-    round-off leaves some static residual rotations in the window
-    1e-7 < θ < ~1e-3 where exp's θ→0 limits cancel; XLA's forward-mode
-    tangents there overflow, NaN·0 poisons the normal equations even from
-    invalid edges, and every step is rejected. torch's tangents stay finite,
-    so the port's graph moves toward the loop measurement."""
+    """Reference behaviour (ROADMAP C), mirrored: with measurements taken
+    from the current poses (as correct_loop takes them), float32 round-off
+    leaves some static residual rotations in the window where exp's limit
+    formulas divide by a cube whose square flushes to zero; XLA's
+    forward-mode tangents there are not finite, NaN·0 poisons the normal
+    equations even from invalid edges, and every step is rejected. The port
+    rejects the same steps (`pose_graph.reference_tangent_overflow`), so it
+    returns the reference's poses exactly."""
     poses, meas, jprob, tprob = essential_problem(rng, noisy_meas=False)
-    K = poses.shape[0]
     want = np.asarray(jpg.optimize_pose_graph(jprob, n_iters=5))
     got = n(pose_graph.optimize_pose_graph(tprob, n_iters=5))
     np.testing.assert_array_equal(want, poses)
-    err = lambda P: np.abs(np.asarray(jpg.relative_sim3(jnp.asarray(P), 0, K - 1)) - meas[-1]).max()  # noqa: E731
-    assert err(got) < 0.5 * err(poses)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_reference_pose_graph_rejects_steps_once_a_masked_residual_overflows(rng):
+    """The mirror inside the loop: no residual overflows at the input, the
+    first step is accepted, and after it a masked edge's residual sits at
+    θ = 2e-7, where the reference's tangents overflow. The reference then
+    rejects every later step and returns its one-step poses; the port
+    rejects them too. The band is narrow: the two sides' first steps agree
+    to ~1e-6, so a residual put within that of the band's edge can part
+    them; 2e-7 lies inside on both sides for 7 of seeds 0-7 and for this
+    one, which the asserts on `overflow` below check."""
+    poses, meas, jprob, tprob = essential_problem(rng, noisy_meas=True)
+    one_step = n(pose_graph.optimize_pose_graph(tprob, n_iters=1))
+    e = int(np.nonzero(~np.asarray(jprob.edge_valid))[0][0])
+    ei, ej, meas = np.array(jprob.edge_i), np.array(jprob.edge_j), np.array(meas)
+    ei[e], ej[e] = 2, 5
+    xi = np.zeros(7, np.float32)
+    xi[3] = 2e-7
+    meas[e] = np.asarray(js3.compose(js3.exp(jnp.asarray(xi)), jpg.relative_sim3(jnp.asarray(one_step), 2, 5)))
+    jprob2 = jprob._replace(edge_i=jnp.asarray(ei), edge_j=jnp.asarray(ej), edge_meas=jnp.asarray(meas))
+    tprob2 = tprob._replace(edge_i=t(ei), edge_j=t(ej), edge_meas=t(meas))
+
+    def overflow(P):
+        return bool(pose_graph.reference_tangent_overflow(t(P), t(ei), t(ej), t(meas)).any())
+
+    want = np.asarray(jpg.optimize_pose_graph(jprob2, n_iters=20))
+    got = n(pose_graph.optimize_pose_graph(tprob2, n_iters=20))
+    assert not overflow(poses) and overflow(want) and overflow(got)
+    np.testing.assert_array_equal(got, one_step)
+    np.testing.assert_allclose(got, want, atol=1e-5)
+    # Without the masked edge both go on: the rejection is what holds them.
+    moved_on = np.asarray(jpg.optimize_pose_graph(jprob, n_iters=20))
+    assert np.abs(moved_on - want).max() > 1e-3
+    assert np.abs(one_step - poses).max() > 1e-2
 
 
 def test_reference_exp_tangent_overflows_just_above_unit_scale():

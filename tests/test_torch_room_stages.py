@@ -20,8 +20,9 @@ test_torch_local_ba.py, test_torch_tracking.py, test_torch_loop_closing.py):
   pick count equal;
 * the GF selection on the room prior of frame 236, where the reference's
   selection picks no point: see test_room_gf_selection_at_a_null_prior;
-* correct_loop with the reference's optimized graph replayed: poses and
-  points 1e-4, observations and point flags exact;
+* correct_loop, its essential graph the port's own: poses and points
+  1e-4, observations and point flags exact; the predicate that mirrors the
+  reference's rejected graph steps exact on every edge of the loop's graph;
 * the Schur global BA (5 + 40 LM) of the reference's final map: keyframe
   ATE within 5% of the reference's solve.
 """
@@ -290,10 +291,8 @@ def test_room_gf_selection_at_a_null_prior(fx, monkeypatch, batch, shift):
 # ---------------------------------------------------------------------------
 
 
-def test_room_correct_loop(fx, monkeypatch):
+def test_room_correct_loop(fx):
     arrays, meta = fx
-    s_opt = t(arrays["loop_S_opt"])
-    monkeypatch.setattr(pose_graph, "optimize_pose_graph", lambda prob, n_iters=20: s_opt)
     m = port_map(arrays, "loop_in")
     got = loop_closing.correct_loop(m, int(arrays["loop_query_kf"]), int(arrays["loop_loop_kf"]),
                                     t(arrays["loop_S12"]), t(arrays["loop_covis"]), cam=camera(meta))
@@ -306,6 +305,107 @@ def test_room_correct_loop(fx, monkeypatch):
     g = ms.to_numpy(got)
     for k in ("pt_visible", "pt_found"):
         np.testing.assert_array_equal(g[k], want[k], err_msg=k)
+
+
+def reference_graph_problem(arrays) -> dict:
+    """The essential-graph problem the reference's compiled correct_loop
+    hands its optimizer on the fixture's loop, field → numpy. A stand-in
+    optimizer records it and returns its input, which spares the 20 steps
+    (the problem is bit for bit the one the real optimizer receives)."""
+    import jax
+    import jax.numpy as jnp
+
+    from gf_orb_slam_tpu.loop import loop_closing as jlc
+    from gf_orb_slam_tpu.mapping import map_state as jms
+    from gf_orb_slam_tpu.solvers import pose_graph as jpg
+
+    rec = {}
+
+    def recording(prob, n_iters=20):
+        jax.debug.callback(lambda *a: rec.update(zip(prob._fields, (np.asarray(x) for x in a))), *prob)
+        return prob.poses
+
+    jm = jms.MapState(**{k: jnp.asarray(v) for k, v in map_delta.decode(arrays, "loop_in").items()})
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jpg, "optimize_pose_graph", recording)
+    try:
+        fn = jax.jit(jlc.correct_loop.__wrapped__, static_argnames=("cam", "n_iters"))
+        fn(jm, jnp.asarray(int(arrays["loop_query_kf"])), jnp.asarray(int(arrays["loop_loop_kf"])),
+           jnp.asarray(arrays["loop_S12"]), jnp.asarray(arrays["loop_covis"]))
+        jax.effects_barrier()
+    finally:
+        mp.undo()
+    return rec
+
+
+def reference_jacobian_finite(S_iw, S_jw, meas) -> np.ndarray:
+    """(E,) bool: the reference's jacfwd of pose_graph._edge_residual at
+    ξ = 0, compiled as its optimizer compiles it, finite per edge."""
+    import jax
+    import jax.numpy as jnp
+
+    from gf_orb_slam_tpu.solvers import pose_graph as jpg
+
+    z = jnp.zeros((S_iw.shape[0], 7))
+    Ji, Jj = jax.jit(jax.vmap(jax.jacfwd(jpg._edge_residual, argnums=(0, 1))))(
+        z, z, jnp.asarray(S_iw), jnp.asarray(S_jw), jnp.asarray(meas))
+    return np.isfinite(np.asarray(Ji)).all(axis=(1, 2)) & np.isfinite(np.asarray(Jj)).all(axis=(1, 2))
+
+
+def test_reference_tangent_overflow_predicate(fx):
+    """`pose_graph.reference_tangent_overflow` against the finiteness of the
+    reference's forward-mode Jacobians: on a log-spaced float32 sweep of θ
+    and σ (residual rotations about one axis, scales e^σ, either sign), and
+    on every edge of the room fixture's loop as the reference's correct_loop
+    builds it. Disagreements on the sweep must lie within 1% of the range's
+    edge (a 1% step in θ or σ flips the predicate there) and are printed;
+    on the fixture there must be none. Then the port's optimizer returns
+    that problem's poses exactly, as the reference's does (it rejects all 20
+    steps there; `loop_S_opt`, its output on an uncompiled replay of the
+    same correction, is its input too)."""
+    arrays, _ = fx
+    axis = np.asarray([0.3, -0.5, 0.8]) / np.linalg.norm([0.3, -0.5, 0.8])
+    grid = np.concatenate([[0.0], np.logspace(-8.5, -5, 141)])
+
+    def sim3_of(theta, sigma):
+        q = np.concatenate([np.cos(theta / 2)[:, None], np.sin(theta / 2)[:, None] * axis], axis=1)
+        tr = np.broadcast_to([0.3, -0.2, 0.1], (theta.shape[0], 3))
+        return np.concatenate([q, tr, np.exp(sigma)[:, None]], axis=1).astype(np.float32)
+
+    def predicate(theta, sigma):
+        S = sim3_of(theta, sigma)
+        eye = np.tile(np.asarray([1, 0, 0, 0, 0, 0, 0, 1], np.float32), (S.shape[0], 1))
+        E = S.shape[0]
+        return pose_graph.reference_tangent_overflow(t(np.concatenate([S, eye])), torch.arange(E),
+                                                     torch.arange(E) + E, t(eye)).numpy(), S, eye
+
+    th, sg = np.meshgrid(grid, np.concatenate([grid, -grid[1:]]), indexing="ij")
+    th, sg = th.ravel(), sg.ravel()
+    pred, S, eye = predicate(th, sg)
+    prob = reference_graph_problem(arrays)
+    P, E = prob["poses"], len(th)
+    # One compiled Jacobian for the sweep and the loop's edges together.
+    finite = reference_jacobian_finite(np.concatenate([S, P[prob["edge_i"]]]), np.concatenate([eye, P[prob["edge_j"]]]),
+                                       np.concatenate([eye, prob["edge_meas"]]))
+    finite, room_finite = finite[:E], finite[E:]
+    off = np.flatnonzero(pred == finite)
+    print(f"sweep: {len(th)} points, {int((~finite).sum())} with non-finite reference tangents, "
+          f"{len(off)} disagreements", [(float(th[k]), float(sg[k])) for k in off[:20]])
+    assert (~finite).sum() > 0
+    near = np.zeros(len(off), bool)
+    for f in (0.99, 1.01):
+        near |= (predicate(th[off] * f, sg[off])[0] != pred[off]) | (predicate(th[off], sg[off] * f)[0] != pred[off])
+    assert near.all(), "a disagreement away from the range's edge"
+
+    pred = pose_graph.reference_tangent_overflow(t(P), t(prob["edge_i"]), t(prob["edge_j"]),
+                                                 t(prob["edge_meas"])).numpy()
+    print(f"room loop: {len(pred)} edges, {int((~room_finite).sum())} with non-finite reference tangents "
+          f"({int((~room_finite & prob['edge_valid']).sum())} valid), {int((pred == room_finite).sum())} disagreements")
+    assert len(pred) == 32897 and (~room_finite).sum() > 0
+    np.testing.assert_array_equal(pred, ~room_finite)
+
+    got = pose_graph.optimize_pose_graph(pose_graph.PoseGraphProblem(*(t(prob[k]) for k in prob)))
+    np.testing.assert_array_equal(got.numpy(), P)
 
 
 def test_room_global_bundle_adjust(fx):

@@ -19,7 +19,19 @@ onto the card, warms up, then
    BA, descriptors (window medoid + statistics refresh), keyframe culling
    and the new view — each timed by synchronising at its boundaries (the
    stage functions are wrapped; the insertion's code is unchanged), and one
-   insertion traced with torch.profiler for its kernel launches.
+   insertion traced with torch.profiler for its kernel launches;
+4. the stages of the reference's tools/profile_stages.py that parts 1-3 do
+   not split out, each timed alone between synchronisations (median of
+   --frames calls after a warm-up): the pyramid, pyramid + FAST detection,
+   pyramid + moment integrals, pyramid + Gaussian blur, the whole
+   extraction, the patch-matmul extraction (`OrbConfig.patch_desc`), and
+   the whole step with GF subset at batch 1, 5 and 10 and at budgets 60 and
+   200 (batch 5). Its bfloat16 variants have no counterpart: the port's
+   matmuls run in float32;
+5. the insertion variants of the reference's tools/profile_insertion.py
+   (window BA at 4+6, 1+1 and 0+0 LM, window 6, 1,024 points, triangulation
+   with 2 or no neighbours, fusion with 2 or no neighbours), each timed as
+   the median of --insertions calls between synchronisations.
 
 Prints one JSON line per part and writes the profiler tables under --out.
 Needs a CUDA GPU.
@@ -145,6 +157,94 @@ def main() -> None:
     r = step(0)
     profile_insertion(torch, cam, m, r, args.insertions, args.out)
 
+    # 4. the reference's stage list (tools/profile_stages.py).
+    from gf_orb_slam_tpu_torch.ops import fast as fast_ops
+    from gf_orb_slam_tpu_torch.ops import orb
+    from gf_orb_slam_tpu_torch.ops import pyramid as pyr
+
+    img0 = frames[0]
+    quotas = pyr.features_per_level(cfg.n_features, cfg.n_levels, cfg.scale)
+
+    def s_fast():
+        for lvl, q in zip(pyr.build_pyramid(img0, cfg.n_levels, cfg.scale), quotas):
+            if q > 0:
+                fast_ops.detect_keypoints(lvl, n_keep=q, threshold=cfg.fast_threshold,
+                                          min_threshold=cfg.fast_min_threshold, grid=cfg.grid)
+
+    def s_step(batch, budget=gf["gf_budget"]):
+        return lambda: tracking.track_frame_fused(cam, cfg, m, view, img0, *state, dt, key, **kw,
+                                                  **dict(gkw, gf_batch=batch, gf_budget=budget))
+
+    reference_stages = {
+        "pyramid": lambda: pyr.build_pyramid(img0, cfg.n_levels, cfg.scale),
+        "pyr+fast": s_fast,
+        "pyr+integrals": lambda: [orb.level_moment_integrals(lvl)
+                                  for lvl in pyr.build_pyramid(img0, cfg.n_levels, cfg.scale)],
+        "pyr+blur": lambda: [pyr.gaussian_blur(lvl) for lvl in pyr.build_pyramid(img0, cfg.n_levels, cfg.scale)],
+        "extract_full": lambda: orb.extract_orb(img0, cfg),
+        "extract_patchmm": lambda: orb.extract_orb(img0, cfg._replace(patch_desc=True)),
+        "fused_track_gf_b1": s_step(1),
+        "fused_gf_b5": s_step(5),
+        "fused_gf_b10": s_step(10),
+        "fused_gf_b5_k60": s_step(5, 60),
+        "fused_gf_b5_k200": s_step(5, 200),
+    }
+    print(json.dumps({"part": "reference_stages_ms_median",
+                      **{k: synced_ms(torch, fn, args.frames) for k, fn in reference_stages.items()},
+                      "device": torch.cuda.get_device_name(0)}), flush=True)
+
+    # 5. the reference's insertion variants (tools/profile_insertion.py).
+    insertion_variants(torch, cam, m, r, args.insertions)
+
+
+def synced_ms(torch, fn, reps: int) -> float:
+    """Median wall ms of fn() between synchronisations, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts)
+
+
+def insertion_args(torch, cam, m, r) -> tuple:
+    """`insert_keyframe_fused`'s arguments for the tracked frame r, padded
+    to the map's keypoint capacity."""
+    pad = m.kp_capacity - r.frame_uv.shape[0]
+
+    def pz(a, fill=0):
+        return torch.cat([a, a.new_full((pad,) + a.shape[1:], fill)])
+
+    return (cam, m._replace(pt_visible=r.pt_visible, pt_found=r.pt_found), r.pose, 132, 6.6,
+            pz(r.frame_uv), pz(r.frame_octave), pz(r.frame_angle), pz(r.frame_desc), pz(r.frame_valid, False),
+            pz(r.obs_point, -1))
+
+
+def insertion_variants(torch, cam, m, r, reps: int) -> None:
+    from gf_orb_slam_tpu_torch.pipeline import local_mapping
+
+    args = insertion_args(torch, cam, m, r)
+    variants = {
+        "full (tri3, fuse4, ba 5+10)": {},
+        "ba 4+6": dict(ba_iters=(4, 6)),
+        "ba 4+6 window 6": dict(ba_iters=(4, 6), ba_window=6),
+        "ba 4+6 pts 1024": dict(ba_iters=(4, 6), ba_points=1024),
+        "ba 1+1": dict(ba_iters=(1, 1)),
+        "ba 0+0": dict(ba_iters=(0, 0)),
+        "no triangulation": dict(n_tri_neighbors=0),
+        "no fusion": dict(n_fuse_neighbors=0),
+        "fusion 2 neighbors": dict(n_fuse_neighbors=2),
+        "tri 2 neighbors": dict(n_tri_neighbors=2),
+        "window 6": dict(ba_window=6),
+    }
+    print(json.dumps({"part": "insertion_variants_ms_median",
+                      **{k: synced_ms(torch, lambda kw=kw: local_mapping.insert_keyframe_fused(*args, **kw), reps)
+                         for k, kw in variants.items()},
+                      "device": torch.cuda.get_device_name(0)}), flush=True)
+
 
 def profile_insertion(torch, cam, m, r, reps: int, out_dir: str) -> None:
     from torch.profiler import ProfilerActivity, profile
@@ -155,14 +255,7 @@ def profile_insertion(torch, cam, m, r, reps: int, out_dir: str) -> None:
     from gf_orb_slam_tpu_torch.pipeline import local_mapping
     from gf_orb_slam_tpu_torch.solvers import local_ba
 
-    pad = m.kp_capacity - r.frame_uv.shape[0]
-
-    def pz(a, fill=0):
-        return torch.cat([a, a.new_full((pad,) + a.shape[1:], fill)])
-
-    args = (cam, m._replace(pt_visible=r.pt_visible, pt_found=r.pt_found), r.pose, 132, 6.6,
-            pz(r.frame_uv), pz(r.frame_octave), pz(r.frame_angle), pz(r.frame_desc), pz(r.frame_valid, False),
-            pz(r.obs_point, -1))
+    args = insertion_args(torch, cam, m, r)
 
     def insert():
         return local_mapping.insert_keyframe_fused(*args)

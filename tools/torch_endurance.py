@@ -2,7 +2,7 @@
 """Endurance of the PyTorch port at shipped capacities (tools/endurance.py on the port).
 
     python tools/torch_endurance.py [--frames 3600] [--scene room] [--segment 600] \
-        [--device cuda] [--out results/torch_endurance.json]
+        [--device cuda] [--out results/torch_endurance.json] [--dump-closures DIR]
 
 A multi-revolution room circuit (the EuRoC camera, scene seed 0, radius 4.0,
 --deg-per-frame of yaw: 3600 frames at 0.99°/frame are 9.9 revolutions) or
@@ -15,15 +15,23 @@ live keyframes and map points, the keyframe counter, loops, compactions and
 their frames, the state, the median host ms per stage (`local_map_track`,
 `keyframe_insert`, `pipeline_wait`, `total`) and the frame rate so far; then
 the segment ATEs (each segment Sim(3)-aligned alone), each loop closure
-(its frame, the query and loop keyframes' frames, and the rotation error of
-the verified Sim3 against the ground truth's relative rotation of those two
-frames; its scale beside the map's scale at the query keyframe over that
-at the loop keyframe, each read as the distance to the keyframe nearest in
-time over the ground truth's, and the ratio of the two), the whole run's ATE
+(its frame, the query and loop keyframes' frames, and the verified Sim3
+against the ground truth, `io_utils/loop_eval.sim3_against_ground_truth`:
+its rotation error to the ground truth's relative rotation of those two
+frames, its scale beside the map's scale ratio at the two keyframes, and
+the ratio of the two), the whole run's ATE
 and the reference tool's gates (tracked ≥ 97%, ATE ≤ --ate-gate-m, live
 keyframes and points within capacity, the last segment's tracking median ≤
 2× the second's). Exits 1 when a gate fails. Runs on the first CUDA card
 unless --device cpu.
+
+--dump-closures DIR saves each closure's verification and correction
+inputs as DIR/closure_<frame>.npz: the map and the BoW database in the
+snapshot schema (io_utils/snapshot.py, no vocabulary), `query_kf`,
+`loop_kf`, the verified `S12`, `covis`, the corrected map's `out_kf_pose`
+and `out_pt_pos`, and the ground truth (`ts`, `poses_gt`), the format of
+`tools/torch_room_spread.py port --dump-correct`, which `verify-study` and
+`correct-study` replay on both sides.
 """
 
 from __future__ import annotations
@@ -50,15 +58,15 @@ def main() -> int:
     ap.add_argument("--ate-gate-m", type=float, default=0.12)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default=os.path.join(REPO, "results", "torch_endurance.json"))
+    ap.add_argument("--dump-closures", default="", help="save each closure's inputs in this directory")
     args = ap.parse_args()
 
     import numpy as np
     import torch
 
     from gf_orb_slam_tpu_torch import run_slam
-    from gf_orb_slam_tpu_torch.geometry import quat
     from gf_orb_slam_tpu_torch.geometry.camera import EUROC_CAM
-    from gf_orb_slam_tpu_torch.io_utils import evaluation, synthetic
+    from gf_orb_slam_tpu_torch.io_utils import evaluation, loop_eval, snapshot, synthetic
     from gf_orb_slam_tpu_torch.loop import loop_closing
     from gf_orb_slam_tpu_torch.pipeline.system import SlamConfig, SlamSystem, resolve_device
     from gf_orb_slam_tpu_torch.retrieval import vocabulary as voc_mod
@@ -89,25 +97,25 @@ def main() -> int:
 
     closures = []
     correct = loop_closing.correct_loop
-    gt_centers = run_slam.camera_centers(poses_gt)
-
-    def frame_of(t) -> int:
-        return int(np.abs(np.asarray(ts) - t).argmin())
 
     def recording_correct(m, query_kf, loop_kf, S12, *a, **kw):
-        kf_ts, valid = m.kf_timestamp.cpu().numpy(), m.kf_valid.cpu().numpy()
-        centers = run_slam.camera_centers(m.kf_pose.cpu().numpy())
-
-        def map_scale(k) -> float:
-            """Map units per metre at keyframe k: its distance to the valid
-            keyframe nearest it in time, over the ground truth's."""
-            j = min((j for j in np.flatnonzero(valid) if j != k), key=lambda j: abs(kf_ts[j] - kf_ts[k]))
-            gt = np.linalg.norm(gt_centers[frame_of(kf_ts[k])] - gt_centers[frame_of(kf_ts[j])])
-            return float(np.linalg.norm(centers[k] - centers[j]) / gt)
-
         q, lk = int(query_kf), int(loop_kf)
-        closures.append((i, frame_of(kf_ts[q]), frame_of(kf_ts[lk]), S12.double().cpu(), map_scale(q) / map_scale(lk)))
-        return correct(m, query_kf, loop_kf, S12, *a, **kw)
+        fid = m.kf_frame_id.cpu().numpy()
+        row = loop_eval.sim3_against_ground_truth(S12.cpu().numpy(), q, lk, m.kf_pose.cpu().numpy(), fid,
+                                                  m.kf_valid.cpu().numpy(), poses_gt)
+        closures.append({"frame": i, "query_frame": int(fid[q]), "loop_frame": int(fid[lk]),
+                         **{k: round(v, 4) for k, v in row.items()}})
+        out = correct(m, query_kf, loop_kf, S12, *a, **kw)
+        if args.dump_closures:
+            os.makedirs(args.dump_closures, exist_ok=True)
+            path = os.path.join(args.dump_closures, f"closure_{i}.npz")
+            snapshot.save_map(path, m, None, system.bow_db)
+            with np.load(path) as z:
+                arrays = dict(z)
+            np.savez_compressed(path, **arrays, query_kf=q, loop_kf=lk, S12=S12.cpu().numpy(),
+                                covis=a[0].cpu().numpy(), out_kf_pose=out.kf_pose.cpu().numpy(),
+                                out_pt_pos=out.pt_pos.cpu().numpy(), ts=np.asarray(ts), poses_gt=poses_gt)
+        return out
 
     loop_closing.correct_loop = recording_correct
     seg_rows = []
@@ -147,24 +155,11 @@ def main() -> int:
     for s0 in range(0, n, args.segment):
         m = (tarr >= ts[s0]) & (tarr < ts[min(s0 + args.segment, n - 1)])
         seg_ate.append(round(evaluation.ate_rmse(est_pos[m], gt_pos[m]), 4) if m.sum() > 30 else None)
-    closure_rows = []
-    for frame, fq, fl, S12, gt_scale in closures:
-        # S12 maps the loop keyframe's camera into the query keyframe's, so
-        # its scale should be the map's scale at the query over that at the
-        # loop keyframe.
-        q_gt = quat.qprod(torch.from_numpy(poses_gt[fq][:4]).double(),
-                          quat.qconj(torch.from_numpy(poses_gt[fl][:4]).double()))
-        q_s = S12[:4] / torch.linalg.norm(S12[:4])
-        err = 2 * torch.arccos(torch.clamp(torch.abs(torch.sum(q_gt * q_s)), 0, 1))
-        scale = float(S12[7])
-        closure_rows.append({"frame": frame, "query_frame": fq, "loop_frame": fl,
-                             "rotation_error_deg": round(float(torch.rad2deg(err)), 4), "scale": round(scale, 4),
-                             "map_scale_ratio": round(gt_scale, 4), "scale_error": round(scale / gt_scale, 4)})
     tracked_frac = len(est_poses) / n
     result = {**header, "scene": args.scene, "frames": n, "revolutions": round(revs, 2), "gf_budget": args.gf_budget,
               "pipeline": 1, "capacities": {"max_keyframes": cfg.max_keyframes, "max_points": cfg.max_points},
               "tracked": len(est_poses), "tracked_frac": round(tracked_frac, 4), "ate_rmse_m": full_ate,
-              "segment_ate_m": seg_ate, "loops_closed": system.n_loops_closed, "closures": closure_rows,
+              "segment_ate_m": seg_ate, "loops_closed": system.n_loops_closed, "closures": closures,
               "compactions": system.n_compactions,
               "compaction_frames": [list(c) for c in system.compactions], "final_state": system.state.name,
               "wall_s": round(wall_s, 1), "wall_fps": round(n / wall_s, 2), "segments": seg_rows}

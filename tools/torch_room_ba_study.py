@@ -19,7 +19,10 @@ PATH is a file `record` wrote, or a saved map of the 420-frame room circuit
 problem `study` builds as `record` does. `study` solves each saved problem
 with the distributed solver on an in-process group of one (10 LM × 25 PCG,
 as phase 11, and 40 × 100) and with the Schur solver (5 + 10 LM, as phase
-11, and 5 + 40), and prints for each solve the Huber cost, the keyframe
+11, and 5 + 40); then the two on one problem, the Schur 5 + 40 with no
+pruning and the distributed 40 × 100 over the edges the Schur keeps after
+its first 5 LM, with the converged keyframe-ATE ratios of each pairing
+(`converged_ate_ratio`); and prints for each solve the Huber cost, the keyframe
 ATE (Sim(3)-aligned), each keyframe's aligned error, and the edges whose χ²
 exceeds the Huber threshold. One JSON line per map. Two suspects of a
 biased optimum are checked beside them: `pyramid_exact` re-solves (Schur
@@ -169,6 +172,21 @@ def study(path: str, device: str) -> None:
             for name, (s1, s2) in {"schur_5_10": (5, 10), "schur_5_40": (5, 40)}.items():
                 res = local_ba.bundle_adjust(cam, prob, iters_stage1=s1, iters_stage2=s2)
                 rec[name] = report(res.poses, res.points)
+            # The two solvers on one problem: the Schur solve unpruned, and
+            # the distributed solve over the edges the Schur keeps after its
+            # first stage.
+            res = local_ba.bundle_adjust(cam, prob, iters_stage1=5, iters_stage2=40, chi2_prune=float("inf"))
+            rec["schur_5_40_unpruned"] = report(res.poses, res.points)
+            kept = local_ba.bundle_adjust(cam, prob, iters_stage1=5, iters_stage2=0).obs_active
+            pruned = prob._replace(obs_w=torch.where(kept, prob.obs_w, torch.zeros_like(prob.obs_w)))
+            res = global_ba.gather_result(global_ba.distributed_bundle_adjust(cam, pruned, g, 40, 100),
+                                          prob.poses.shape[0], g)
+            rec["dist_40x100_pruned"] = report(res.poses, res.points) | {"edges_pruned": int((active0 & ~kept).sum())}
+            rec["converged_ate_ratio"] = {
+                k: rec[a]["keyframe_ate_m"] / rec[b]["keyframe_ate_m"]
+                for k, (a, b) in {"dist_over_schur": ("dist_40x100", "schur_5_40"),
+                                  "dist_over_schur_unpruned": ("dist_40x100", "schur_5_40_unpruned"),
+                                  "dist_pruned_over_schur": ("dist_40x100_pruned", "schur_5_40")}.items()}
             exact = prob._replace(obs_uv=pyramid_exact_uv(cam, prob.obs_uv, prob.obs_w))
             res = local_ba.bundle_adjust(cam, exact, iters_stage1=5, iters_stage2=40)
             rec["pyramid_exact"] = report(res.poses, res.points) | {

@@ -45,7 +45,8 @@ rows (a reference behaviour since). `port --dump-correct
 PATH` saves the first loop correction's map, BoW database, Sim3 and result;
 `correct-study` replays it (as run, float32, float64, the graph's poses
 kept) against the ground truth, and `verify-study` replays its loop
-verification with fresh RANSAC draws on both sides.
+verification with fresh RANSAC draws on both sides (also on the closures
+`tools/torch_endurance.py --dump-closures` saves; C6).
 
 `all` runs the reference and the port at every seed, each saving its map
 (seed 0 of the reference also its samples), and the port once injected,
@@ -379,8 +380,12 @@ def verify_study(dump: str, draws: int) -> dict:
     fresh RANSAC draws, by the port (torch generators 0..draws−1) and by the
     reference (PRNG keys 0..draws−1), on the same map and BoW database:
     accepted share, and the accepted Sim3s' rotation error against the
-    ground truth's relative rotation (the reference's verification is held
-    to the same numbers as the port's)."""
+    ground truth's relative rotation and their scale over the ground truth's
+    ratio of the map's scales at the two keyframes
+    (`io_utils/loop_eval.sim3_against_ground_truth`); how many accepted Sim3s are ≥ 5° off
+    in rotation or ≥ 10% off in scale. The reference's verification is held
+    to the same numbers as the port's. Takes `port --dump-correct` files and
+    `tools/torch_endurance.py --dump-closures` files alike."""
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -392,42 +397,46 @@ def verify_study(dump: str, draws: int) -> dict:
     sys.path.insert(0, REPO)
     from gf_orb_slam_tpu.io_utils import snapshot as jsnap
     from gf_orb_slam_tpu.loop import loop_closing as jlc
-    from gf_orb_slam_tpu_torch.geometry import quat
     from gf_orb_slam_tpu_torch.geometry.camera import EUROC_CAM
-    from gf_orb_slam_tpu_torch.io_utils import snapshot
+    from gf_orb_slam_tpu_torch.io_utils import loop_eval, snapshot
     from gf_orb_slam_tpu_torch.loop import loop_closing
 
     from gf_orb_slam_tpu.geometry.camera import EUROC_CAM as JCAM
 
     z = np.load(dump)
-    q, lk, ts, poses_gt = int(z["query_kf"]), int(z["loop_kf"]), z["ts"], z["poses_gt"]
+    q, lk, poses_gt = int(z["query_kf"]), int(z["loop_kf"]), z["poses_gt"]
     m, _, db = snapshot.load_map(dump, "cpu")
     jm, _, jdb = jsnap.load_map(dump)
-    frames = np.abs(np.asarray(ts)[None, :] - m.kf_timestamp.numpy()[:, None]).argmin(axis=1)
-    q_gt = quat.qprod(torch.from_numpy(poses_gt[frames[q]][:4]), quat.qconj(torch.from_numpy(poses_gt[frames[lk]][:4])))
+    kf = (m.kf_pose.numpy(), m.kf_frame_id.numpy(), m.kf_valid.numpy(), poses_gt)
 
-    def rot_err(S):
-        qs = torch.as_tensor(np.asarray(S[:4], np.float32))
-        return float(2 * torch.arccos(torch.clamp(torch.abs(torch.sum(q_gt * qs / torch.linalg.norm(qs))), 0, 1)))
+    def against_gt(S) -> dict:
+        return loop_eval.sim3_against_ground_truth(np.asarray(S, np.float64), q, lk, *kf)
 
     out = {}
     for side in ("port", "reference"):
         rows = []
         for k in range(draws):
             if side == "port":
-                g = torch.Generator().manual_seed(k)
-                lm = loop_closing.verify_candidate(EUROC_CAM, m, db, q, lk, g)
+                lm = loop_closing.verify_candidate(EUROC_CAM, m, db, q, lk, torch.Generator().manual_seed(k))
                 ok, S, n_r, n_o = bool(lm.ok), lm.S12.numpy(), int(lm.n_ransac), int(lm.n_inliers)
             else:
                 lm = jlc.verify_candidate(JCAM, jm, jdb, jnp.asarray(q), jnp.asarray(lk), jax.random.PRNGKey(k))
                 ok, S, n_r, n_o = bool(lm.ok), np.asarray(lm.S12), int(lm.n_ransac), int(lm.n_inliers)
-            rows.append({"ok": ok, "rot_err_rad": rot_err(S), "n_ransac": n_r, "n_opt": n_o, "scale": float(S[7])})
+            g = against_gt(S)
+            rows.append({"ok": ok, "rot_err_rad": float(np.deg2rad(g["rotation_error_deg"])), "n_ransac": n_r,
+                         "n_opt": n_o, "scale_error": g["scale_error"]})
         acc = [r for r in rows if r["ok"]]
+        over_rot = [r["rot_err_rad"] > float(np.deg2rad(5)) for r in acc]
+        over_scale = [abs(r["scale_error"] - 1) >= 0.1 for r in acc]
         out[side] = {"draws": draws, "accepted": len(acc),
                      "accepted_rot_err_rad": sorted(round(r["rot_err_rad"], 4) for r in acc),
-                     "accepted_over_5deg": sum(r["rot_err_rad"] > float(np.deg2rad(5)) for r in acc),
+                     "accepted_scale_error": sorted(round(r["scale_error"], 4) for r in acc),
+                     "accepted_over_5deg": sum(over_rot), "accepted_scale_off_10pct": sum(over_scale),
+                     "accepted_wrong": sum(a or b for a, b in zip(over_rot, over_scale)),
                      "n_ransac": [r["n_ransac"] for r in rows], "n_opt": [r["n_opt"] for r in rows]}
-    return {"query_kf": q, "loop_kf": lk, "query_frame": int(frames[q]), "loop_frame": int(frames[lk]), **out}
+    fid = kf[1]
+    return {"dump": os.path.basename(dump), "query_kf": q, "loop_kf": lk, "query_frame": int(fid[q]),
+            "loop_frame": int(fid[lk]), "gt_scale_ratio": loop_eval.map_scale_ratio(q, lk, *kf), **out}
 
 
 # --------------------------------------------------------------------- port
