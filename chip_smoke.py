@@ -201,6 +201,20 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              counters exact); the Hamming kernel launched at the
              verification's and SearchAndFuse's shapes
              (ENDURANCE_STAGE_SHAPES);
+17. ba_scaling — tools/torch_ba_scaling_bench.py at the reference tool's
+             defaults (64 cameras, 4,096 points, 512 observation slots,
+             6 LM × 20 PCG) on the card's NCCL group of one: ms per LM
+             iteration (host clock), device ms (CUDA events) and peak MiB;
+             its converged cost finite and within 1% of the same problem
+             solved by the port on the CPU (gloo, world size 1);
+17b. repeat — bench-system's first REPEAT_FRAMES frames (phase 5's
+             configuration, frames and vocabulary) run twice: every
+             per-frame pose and obs_point row and the final map equal bit
+             for bit. With phase 11's Schur and distributed solves, phase
+             15's correct_loop and its pose graph taking steps (each run
+             twice on one input) these are the repeat gates: under the
+             default settings (no `torch.use_deterministic_algorithms`), two
+             runs of one input give equal bits;
 12. profile — the profiler's device duration of both kernels at 4096×800, a
              cross-check of phase 3's graph times, the kernel launches of
              the last local-map call of each mode's run (subset: phase 5's),
@@ -210,8 +224,21 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              profiler ran. It comes last, so that the profiler
              cannot slow the host's launches in the timed phases.
 
-Each path phase (4-7, 9, 10, 10b, 10c, 13, 14, 15, 16) sets the kernel's launch counts to 0 just before it
-drives the path and reads them just after. Then the kernel's launches by
+Order and processes (the time limit). Phases 1-4 run alone. Then two
+side processes start on the same card (SIDE_PROCESSES): "room-loop" runs
+7, 8's loop part (verification and correction), 11, 13's probe round, 10
+and, last, 12's global-BA launches (the profiler slows every later launch
+of its process); "room-churn" runs 15, 16, 17, 17b, 14 and 10c. Beside
+them this process runs 5, 6, 8's other part, 10b, 9, 13 and 12, and
+prints every record, the side processes' once they are done (after 9).
+The card idles most of each frame, waiting on its host's launches, so
+three processes share it with little loss; every time from phase 5 on is
+taken beside the other processes' work, and only phases 3-4 time the
+card alone. A side process prints nothing on the standard output and
+renders its own frames.
+
+Each path phase (4-7, 9, 10, 10b, 10c, 13, 14, 15, 16, 17b) sets the kernel's launch counts to 0 just before it
+drives the path, in its own process, and reads them just after. Then the kernel's launches by
 shape, the seconds each phase took, the kernel table line and, last,
 {"ok": true, "device": {...}}. The
 fixtures (gf_orb_slam_tpu_torch/data/track_fixture.npz, place_fixture.npz,
@@ -228,13 +255,16 @@ from __future__ import annotations
 import collections
 import json
 import math
+import multiprocessing
 import os
 import re
 import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import traceback
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(REPO, "gf_orb_slam_tpu_torch", "data", "track_fixture.npz")
@@ -284,9 +314,22 @@ ROOM_FIXTURE = os.path.join(REPO, "gf_orb_slam_tpu_torch", "data", "room_fixture
 ROOM_STAGE_SHAPES = ((1600, 1600), (2048, 1600), (4800, 1600))  # phase 15: triangulation, fusion, SearchAndFuse
 ENDURANCE_FIXTURE = os.path.join(REPO, "gf_orb_slam_tpu_torch", "data", "endurance_fixture.npz")
 ENDURANCE_STAGE_SHAPES = ((1600, 1600), (4800, 1600))  # phase 16: loop verification, SearchAndFuse
-BENCH_FRAMES = 96          # the bench: 24 warm-up + 6 windows of 12 frames (a cut of length; the time limit)
+BENCH_FRAMES = 72          # the bench: 24 warm-up + 4 windows of 12 frames (a cut of length; the time limit)
 SWEEP_ARGS = ["--synthetic", "60", "--budgets", "0", "100", "--rounds", "1"]  # GF on from ~frame 45
+REPEAT_FRAMES = 40         # phase 17b: bench-system frames run twice (a cut of length; the time limit)
+SCALING_COST_TOL = 0.01    # phase 17: the card's converged cost within 1% of the CPU's
 PROBE_FLOOR = 8            # phase 13: the probe's Sim3-RANSAC floor
+# The time limit: the card idles most of each frame, waiting on its host's
+# launches, so the phases run in three processes on it, each driving its
+# own path. Phases 1-4 run alone first; then these side processes start,
+# beside 5, 6, 8, 10b, 9, 13 and 12 in the main process (which prints every
+# record). Each phase's launch counts are its own process's.
+SIDE_PROCESSES = {
+    "room-loop": ("loop", "breakdown_loop", "global_ba", "leftovers_probe", "dataset", "profile_global_ba"),
+    "room-churn": ("room_stages", "endurance_stages", "ba_scaling", "repeat", "churn", "sweep"),
+}
+SIDE_PROCESS_THREADS = 4     # torch CPU threads of a side process (the main one keeps torch's default)
+SIDE_PROCESS_TIMEOUT_S = 900.0   # from when this process starts waiting
 FUNNEL_TOL = (3, 0.02)     # phase 13: card vs CPU RANSAC / guided / refined counts within max(3, 2%)
 
 
@@ -533,12 +576,13 @@ def gf_launches(gf_runs: dict) -> dict:
     return launches
 
 
-def profile_phase(dev, gf_runs: dict, loop: dict) -> dict:
+def profile_phase(dev, gf_runs: dict) -> dict:
     """Phase 12: the profiler's device µs of both Hamming kernels at the
     first timed shape; the launches of each GF mode (gf_launches: subset
-    from phase 5, the others from phase 9) and of one global-BA LM
-    iteration on phase 7's map; and the host µs of a small eager op before
-    and after the profiler ran."""
+    from phase 5, the others from phase 9); and the host µs of a small
+    eager op before and after the profiler ran. (The launches of one
+    global-BA LM iteration on phase 7's map, global_ba_launches, are
+    counted last in phase 7's process.)"""
     import numpy as np
     import torch
 
@@ -557,7 +601,6 @@ def profile_phase(dev, gf_runs: dict, loop: dict) -> dict:
     del ring
     launches = gf_launches(gf_runs)
     return {"phase": "profile", "shape": [nq, nt], "profiler": prof, "gf_mode_kernel_launches": launches,
-            "global_ba_launches_per_lm_iter": global_ba_launches(loop),
             "eager_op_host_us_before_profiler": before, "eager_op_host_us_after_profiler": host_us(lambda: x.add_(1))}
 
 
@@ -622,7 +665,20 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
+    procs = {}  # the side processes, once they are started
+    try:
+        return run(procs)
+    finally:
+        for p in procs.values():
+            if p.is_alive():
+                p.kill()
+            p.join()
+
+
+def run(procs: dict) -> int:
+    """The phases, in order (main stops every process started here)."""
     import numpy as np
+    import torch
 
     from gf_orb_slam_tpu_torch.geometry.camera import CameraModel
     from gf_orb_slam_tpu_torch.io_utils import snapshot
@@ -750,7 +806,15 @@ def main() -> int:
           "fps": F / (sum(ms_wall) / 1e3), "device": kind, "nvidia_smi": smi})
     lap("main")
 
-    # --- 5-7. the whole SLAM loop from the first frame, with place recognition ---
+    # --- 7, 11, 14-17b, 10 and 10c in two side processes on the card, beside 5-9 here ---
+    ctx = multiprocessing.get_context("spawn")
+    sides = {}
+    for name, phases in SIDE_PROCESSES.items():
+        sides[name] = start_side_process(ctx, phases)
+        procs[name] = sides[name][0]
+    lap("side_processes_start")
+
+    # --- 5-6. the whole SLAM loop from the first frame, with place recognition ---
     from gf_orb_slam_tpu_torch.retrieval import vocabulary as voc_mod
 
     t0 = time.perf_counter()
@@ -759,8 +823,7 @@ def main() -> int:
     if voc is None or voc.n_words != 1_000_000:
         raise AssertionError(f"the packaged 1M-word vocabulary did not load from {voc_mod.default_vocabulary_path()}")
     path_recs, runs = {}, {}
-    for name, phase in (("system", run_system_phase), ("relocalization", run_relocalization_phase),
-                        ("loop", run_loop_phase)):
+    for name, phase in (("system", run_system_phase), ("relocalization", run_relocalization_phase)):
         rec, runs[name] = phase(dev, voc)
         if name == "system":
             rec["vocabulary"] = {"path": os.path.relpath(voc_mod.default_vocabulary_path(), REPO),
@@ -774,12 +837,17 @@ def main() -> int:
     gf_runs = {"subset": {k: own(runs["system"]["last_args"][k]) for k in TRACKING_CALLS}
                | {"originals": {k: runs["system"]["originals"][k] for k in TRACKING_CALLS}}}
 
-    # --- 8. where a place-recognition frame's time goes ---
-    emit(breakdown_phase(runs) | {"device": kind, "nvidia_smi": smi})
-    loop = {k: runs["loop"][k] for k in ("system", "ts", "poses_gt", "closing_verify")}  # phases 11 and 13
+    # --- 8. where a place-recognition frame's time goes (phase 7's part in its process) ---
+    breakdown = breakdown_phase(runs)
     system_run = {"system": runs["system"]["system"]}  # phase 13's viz map
     del runs
     lap("breakdown")
+
+    # --- 10b. the bench ---
+    rec = run_bench_phase(dev, voc, smi) | {"device": kind, "nvidia_smi": smi}
+    emit(rec)
+    path_recs["bench"] = rec
+    lap("bench")
 
     # --- 9. the other GF selection modes through the same loop ---
     for mode, rec, gf_runs[mode] in run_gf_modes_phase(dev, voc):
@@ -788,53 +856,36 @@ def main() -> int:
         path_recs[f"gf_{mode}"] = rec
         lap(f"gf_{mode}")
 
-    # --- 10. a dataset sequence on disk through the command line, saved and resumed ---
-    rec = run_dataset_phase(dev) | {"device": kind, "nvidia_smi": smi}
-    emit(rec)
-    path_recs["dataset"] = rec
-    lap("dataset")
-
-    # --- 10b-10c. the bench and the budget sweep ---
-    for name, fn in (("bench", lambda: run_bench_phase(dev, voc, smi)), ("sweep", lambda: run_sweep_phase(dev))):
-        rec = fn() | {"device": kind, "nvidia_smi": smi}
+    # --- the side processes' records: 7 (and 8's part), 11, 10, 14-17b, 10c ---
+    side, side_seconds = {}, {}
+    for name, (proc, reader, messages) in sides.items():
+        for phase, rec, side_seconds[phase] in side_process_records(name, proc, reader, messages):
+            side[phase] = rec
+    breakdown |= side.pop("breakdown_loop")
+    probe, gba_launches = side.pop("leftovers_probe"), side.pop("profile_global_ba")
+    for phase in ("loop", "breakdown", "global_ba", "dataset", "sweep", "churn", "room_stages", "endurance_stages",
+                  "ba_scaling", "repeat"):
+        rec = breakdown if phase == "breakdown" else side[phase]
+        rec.update(device=kind, nvidia_smi=smi)
         emit(rec)
-        path_recs[name] = rec
-        lap(name)
+        if phase not in ("breakdown", "global_ba", "ba_scaling"):
+            path_recs[phase] = rec
+    lap("side_processes_wait")
 
-    # --- 11. global BA of the room circuit's map on an NCCL group ---
-    emit(run_global_ba_phase(dev, loop) | {"device": kind, "nvidia_smi": smi})
-    lap("global_ba")
-
-    # --- 13. the modules no other phase drives ---
-    rec = run_leftovers_phase(dev, system_run, loop) | {"device": kind, "nvidia_smi": smi}
+    # --- 13. the modules no other phase drives (the probe round ran in phase 7's process) ---
+    rec = run_leftovers_phase(dev, system_run, probe) | {"device": kind, "nvidia_smi": smi}
     emit(rec)
     path_recs["leftovers"] = rec
     del system_run
     lap("leftovers")
 
-    # --- 14. compaction, then a kidnap, through the same loop ---
-    rec = run_churn_phase(dev, voc) | {"device": kind, "nvidia_smi": smi}
-    emit(rec)
-    path_recs["churn"] = rec
-    lap("churn")
-
-    # --- 15. the room path stage by stage on the reference's inputs ---
-    rec = run_room_stages_phase(dev) | {"device": kind, "nvidia_smi": smi}
-    emit(rec)
-    path_recs["room_stages"] = rec
-    lap("room_stages")
-
-    # --- 16. the long run's loop closing stage by stage on the reference's inputs ---
-    rec = run_endurance_stages_phase(dev) | {"device": kind, "nvidia_smi": smi}
-    emit(rec)
-    path_recs["endurance_stages"] = rec
-    lap("endurance_stages")
-
     # --- 12. the profiler's cross-check, after every timed phase ---
-    emit(profile_phase(dev, gf_runs, loop) | {"device": kind, "nvidia_smi": smi})
-    del gf_runs, loop
+    emit(profile_phase(dev, gf_runs) | gba_launches | {"device": kind, "nvidia_smi": smi})
+    del gf_runs
     lap("profile")
-    emit({"phase": "seconds", "by_phase": seconds, "total": sum(seconds.values())})
+    emit({"phase": "seconds", "by_phase": seconds, "total": sum(seconds.values()),
+          "side_processes": {name: list(phases) for name, phases in SIDE_PROCESSES.items()},
+          "side_by_phase": side_seconds})
     # Every shape a path phase launched the kernel at (phase 5's insertion
     # re-run launches the shapes of its run).
     path_shapes = set(main_by_shape)
@@ -883,6 +934,104 @@ def load_place_fixture(run: str, path: str = PLACE_FIXTURE):
     with np.load(path) as zf:
         z = {k[len(run) + 1:]: zf[k] for k in zf.files if k.startswith(run + "_")}
     return json.loads(str(z.pop("meta"))), z
+
+
+def _loop_phase(dev, voc, state: dict) -> dict:
+    rec, state["run"] = run_loop_phase(dev, voc)
+    state["loop"] = {k: state["run"][k] for k in ("system", "ts", "poses_gt", "closing_verify")}
+    return rec
+
+
+def _breakdown_loop(dev, voc, state: dict) -> dict:
+    rec = breakdown_phase({"loop": state.pop("run")})
+    del rec["phase"], rec["reps"]
+    return rec
+
+
+# The phases a side process can run: name → fn(device, vocabulary, the
+# process's state) → record. Phase 7's run stays in its process for 8, 11,
+# 13's probe round and 12's global-BA launches.
+SIDE_PHASES = {
+    "loop": _loop_phase,
+    "breakdown_loop": _breakdown_loop,
+    "global_ba": lambda dev, voc, state: run_global_ba_phase(dev, state["loop"]),
+    "leftovers_probe": lambda dev, voc, state: leftovers_probe(dev, state["loop"]),
+    "dataset": lambda dev, voc, state: run_dataset_phase(dev),
+    "profile_global_ba": lambda dev, voc, state: {
+        "global_ba_launches_per_lm_iter": global_ba_launches(state.pop("loop"))},
+    "room_stages": lambda dev, voc, state: run_room_stages_phase(dev),
+    "endurance_stages": lambda dev, voc, state: run_endurance_stages_phase(dev),
+    "ba_scaling": lambda dev, voc, state: run_ba_scaling_phase(),
+    "repeat": lambda dev, voc, state: run_repeat_phase(dev, voc),
+    "churn": lambda dev, voc, state: run_churn_phase(dev, voc),
+    "sweep": lambda dev, voc, state: run_sweep_phase(dev),
+}
+
+
+def side_process(phases: tuple, conn) -> None:
+    """SIDE_PHASES `phases`, in order, in a side process on the card: each
+    phase's record and seconds go to the main process over `conn`, which
+    prints them; this process writes nothing to the standard output."""
+    os.dup2(2, 1)
+    try:
+        import torch
+
+        from gf_orb_slam_tpu_torch.kernels import _build
+        from gf_orb_slam_tpu_torch.retrieval import vocabulary as voc_mod
+
+        torch.set_num_threads(SIDE_PROCESS_THREADS)
+        dev = torch.device("cuda", 0)
+        _build.library()
+        voc = voc_mod.load_default_vocabulary(dev)
+        state: dict = {}
+        for name in phases:
+            t0 = time.perf_counter()
+            rec = SIDE_PHASES[name](dev, voc, state)
+            conn.send(("phase", name, json.dumps(rec), time.perf_counter() - t0))
+        conn.send(("done",))
+    except BaseException:  # reported to the main process, which raises
+        conn.send(("error", traceback.format_exc()))
+        raise
+    finally:
+        conn.close()
+
+
+def start_side_process(ctx, phases: tuple, target=side_process) -> tuple:
+    """(process, reader thread, messages) of target(phases, conn): the
+    thread reads each message as it comes, so that the side process never
+    waits on a full pipe while this one runs its own phases."""
+    conn, child_conn = ctx.Pipe(duplex=False)
+    proc = ctx.Process(target=target, args=(phases, child_conn))
+    proc.start()
+    child_conn.close()
+    messages = []
+
+    def read():
+        while not messages or messages[-1][0] not in ("done", "error"):
+            try:
+                messages.append(conn.recv())
+            except EOFError:  # it exited without a word
+                messages.append(("error", "no report"))
+        conn.close()
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    return proc, reader, messages
+
+
+def side_process_records(name: str, proc, reader, messages: list, timeout: float = SIDE_PROCESS_TIMEOUT_S) -> list:
+    """[(phase, record, seconds)] of a side process, in its order, once it
+    is done; raises where it failed, died or ran out of time."""
+    reader.join(timeout)
+    if reader.is_alive():
+        raise AssertionError(f"side process {name} ran over {timeout} s more, after "
+                             f"{[m[1] for m in messages if m[0] == 'phase']}")
+    out = [(m[1], json.loads(m[2]), m[3]) for m in messages if m[0] == "phase"]
+    proc.join(timeout=60)
+    if messages[-1][0] != "done":
+        raise AssertionError(f"side process {name} failed (exit code {proc.exitcode}) after "
+                             f"{[n for n, _, _ in out]}:\n{messages[-1][1]}")
+    return out
 
 
 # Functions of the path that drive_system records, by module attribute:
@@ -1000,7 +1149,7 @@ def breakdown_phase(runs: dict) -> dict:
     alone between synchronisations (median of 3): the insertion and the BoW
     registration after it, a lost frame's relocalization, one loop
     verification and one correction with its pose graph and its
-    SearchAndFuse timed apart."""
+    SearchAndFuse timed apart (the last where `runs` holds phase 7's)."""
     import importlib
 
     import torch
@@ -1011,6 +1160,8 @@ def breakdown_phase(runs: dict) -> dict:
             if fn_name in ("correct", "compact") or fn_name in TRACKING_CALLS:
                 continue
             rec[f"{name}.{fn_name}_ms"] = timed_ms(lambda: run["originals"][fn_name](*a, **kw))
+    if "loop" not in runs:
+        return rec
     a, kw = runs["loop"]["last_args"]["correct"]
     parts = {"pose_graph": ("gf_orb_slam_tpu_torch.solvers.pose_graph", "optimize_pose_graph"),
              "fuse": ("gf_orb_slam_tpu_torch.mapping.keyframe_ops", "fuse_into_keyframe")}
@@ -1086,21 +1237,27 @@ def run_record(run: dict, F: int) -> dict:
     }
 
 
-_BENCH: dict = {}  # the bench sequence, rendered once (on the CPU) for phases 5, 6, 9 and 10
+_BENCH: dict = {}  # the bench sequence, rendered once a process (on the CPU) for its phases
 
 
-def bench_sequence(dev, meta):
+def bench_sequence(dev, meta, n: int | None = None):
     """(camera, timestamps, ground truth, frames on the card) of the bench
-    sequence a fixture run was recorded on."""
+    sequence a fixture run was recorded on: its first n frames (every one
+    by default), as run_slam.render_sequence renders them."""
+    import torch
+
     from gf_orb_slam_tpu_torch import run_slam
 
     cam = run_slam.BENCH_CAMERA._replace(**{k: meta["camera"][k] for k in ("fx", "fy", "cx", "cy", "width", "height",
                                                                           "fps")})
     key = (cam, meta["trajectory_frames"], meta["scene_seed"])
-    if key not in _BENCH:
+    n = meta["trajectory_frames"] if n is None else n
+    if key not in _BENCH or _BENCH[key][2].shape[0] < n:
         _BENCH.clear()
-        _BENCH[key] = run_slam.render_sequence(cam, meta["trajectory_frames"], meta["scene_seed"], dev)
-    return (cam, *_BENCH[key])
+        ts, poses_gt, frames = run_slam.render_frames(cam, meta["trajectory_frames"], meta["scene_seed"], stop=n)
+        _BENCH[key] = (ts, poses_gt, frames.to(dev).to(torch.float32))
+    ts, poses_gt, frames = _BENCH[key]
+    return cam, ts, poses_gt, frames[:n]
 
 
 def render_difference(cam, n: int, scene_seed: int, frames) -> dict:
@@ -1490,8 +1647,8 @@ def run_dataset_phase(dev) -> dict:
     from gf_orb_slam_tpu_torch.kernels import hamming
 
     meta, _ = load_place_fixture("bench")
-    cam, ts, poses_gt, frames = bench_sequence(dev, meta)
     n_a, n_b = DATASET_FRAMES
+    cam, ts, poses_gt, frames = bench_sequence(dev, meta, n_a + n_b)
     u8 = frames[: n_a + n_b].to(torch.uint8).cpu().numpy()
     with np.load(SYSTEM_FIXTURE) as zf:
         ref = reference_prefix({k: zf[k] for k in ("pose", "state", "insert_frames")}, zf["gt_pose"], n_a)
@@ -1736,9 +1893,10 @@ def probe_round(room, closing: tuple, device) -> list:
     return s.loop_gate_events
 
 
-def run_leftovers_phase(dev, system_run: dict, loop: dict) -> dict:
+def run_leftovers_phase(dev, system_run: dict, probe: dict) -> dict:
     """Phase 13: the modules no other phase drives, each on the card and
-    held against the CPU port or its own criterion. Raises on any gate."""
+    held against the CPU port or its own criterion, with the probe round
+    that leftovers_probe ran in phase 7's process. Raises on any gate."""
     import tempfile
 
     import numpy as np
@@ -1852,27 +2010,9 @@ def run_leftovers_phase(dev, system_run: dict, loop: dict) -> dict:
         bad.append(f"entry step: {rec['entry']}")
     secs["entry"] = time.perf_counter() - t0
 
-    # One probe round on the map phase 7's closing verification read (by
-    # the run's end keyframe culling has removed its query and candidate),
-    # against the CPU port.
-    t0 = time.perf_counter()
-    room, closing = loop["system"], loop["closing_verify"]
-    closed = [e for e in room.loop_events if e["closed"]]
-    if not closed or closing is None:
-        bad.append("phase 7 closed no loop to probe")
-    else:
-        got, want = probe_round(room, closing, dev), probe_round(room, closing, torch.device("cpu"))
-        rec["probe"] = {"query_kf": int(closing[0][3]), "candidate_kf": int(closing[0][4]),
-                        "closed_event": closed[-1], "gate_events": got, "cpu_gate_events": want}
-        ok = (len(got) == len(want) == 3 and "cand" in got[-1] and got[-1]["n_bow"] >= PROBE_FLOOR
-              and (got[-1]["kf"], got[-1]["cand"]) == (closed[-1]["kf"], closed[-1]["matched_kf"]))
-        for g, w in zip(got, want):
-            ok &= set(g) == set(w) and all(g[k] == w[k] for k in w if k not in ("n_ransac", "n_guided", "n_opt"))
-            ok &= all(abs(g[k] - w[k]) <= max(FUNNEL_TOL[0], FUNNEL_TOL[1] * w[k])
-                      for k in ("n_ransac", "n_guided", "n_opt") if k in w)
-        if not ok:
-            bad.append(f"probe round against the CPU: {rec['probe']}")
-    secs["probe"] = time.perf_counter() - t0
+    # One probe round on phase 7's map, run in its process (leftovers_probe).
+    rec["probe"], secs["probe"] = probe["probe"], probe["seconds"]
+    bad += probe["bad"]
 
     # Every texture style, and a few frames along the revisit trajectory.
     t0 = time.perf_counter()
@@ -1889,11 +2029,48 @@ def run_leftovers_phase(dev, system_run: dict, loop: dict) -> dict:
         bad.append(f"synthetic: {rec['synthetic']}")
     secs["synthetic"] = time.perf_counter() - t0
 
-    rec.update({"seconds": time.perf_counter() - t_all, "seconds_by_check": secs, "hamming_launches": hamming.LAUNCHES,
-                "hamming_launches_by_shape": {f"{nq}x{nt}": n for (nq, nt), n in sorted(hamming.LAUNCHES_BY_SHAPE.items())}})
+    by_shape = collections.Counter({f"{nq}x{nt}": n for (nq, nt), n in hamming.LAUNCHES_BY_SHAPE.items()})
+    rec.update({"seconds": time.perf_counter() - t_all, "seconds_by_check": secs,
+                "hamming_launches": hamming.LAUNCHES + probe["hamming_launches"],
+                "hamming_launches_by_shape": dict(sorted((by_shape + collections.Counter(
+                    probe["hamming_launches_by_shape"])).items()))})
     if bad:
         raise AssertionError("leftovers phase outside its gates: " + "; ".join(bad))
     return rec
+
+
+def leftovers_probe(dev, loop: dict) -> dict:
+    """Phase 13's probe round, in phase 7's process: {"probe": record,
+    "bad": gates missed, "seconds", and its Hamming launches}."""
+    import torch
+
+    from gf_orb_slam_tpu_torch.kernels import hamming
+
+    rec, bad = {}, []
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    # One probe round on the map phase 7's closing verification read (by
+    # the run's end keyframe culling has removed its query and candidate),
+    # against the CPU port.
+    room, closing = loop["system"], loop["closing_verify"]
+    closed = [e for e in room.loop_events if e["closed"]]
+    if not closed or closing is None:
+        bad.append("phase 7 closed no loop to probe")
+    else:
+        got, want = probe_round(room, closing, dev), probe_round(room, closing, torch.device("cpu"))
+        rec["probe"] = {"query_kf": int(closing[0][3]), "candidate_kf": int(closing[0][4]),
+                        "closed_event": closed[-1], "gate_events": got, "cpu_gate_events": want}
+        ok = (len(got) == len(want) == 3 and "cand" in got[-1] and got[-1]["n_bow"] >= PROBE_FLOOR
+              and (got[-1]["kf"], got[-1]["cand"]) == (closed[-1]["kf"], closed[-1]["matched_kf"]))
+        for g, w in zip(got, want):
+            ok &= set(g) == set(w) and all(g[k] == w[k] for k in w if k not in ("n_ransac", "n_guided", "n_opt"))
+            ok &= all(abs(g[k] - w[k]) <= max(FUNNEL_TOL[0], FUNNEL_TOL[1] * w[k])
+                      for k in ("n_ransac", "n_guided", "n_opt") if k in w)
+        if not ok:
+            bad.append(f"probe round against the CPU: {rec['probe']}")
+    return {"probe": rec.get("probe"), "bad": bad, "seconds": time.perf_counter() - t0,
+            "hamming_launches": hamming.LAUNCHES,
+            "hamming_launches_by_shape": {f"{nq}x{nt}": n for (nq, nt), n in hamming.LAUNCHES_BY_SHAPE.items()}}
 
 
 def run_room_stages_phase(dev) -> dict:
@@ -2028,11 +2205,20 @@ def run_room_stages_phase(dev) -> dict:
         bad.append("correct_loop: poses or points")
     if loop["pt_valid"] < 1.0 or loop["kf_obs_point"] < 1.0 or not loop["counters_equal"]:
         bad.append("correct_loop: agreement")
-    # (d) the graph where it takes steps (reported, not gated): the
-    # correction's problem with every free vertex moved ~0.01 off, so no
-    # residual sits at round-off and the reference's predicate is false at
-    # the input; 20 LM iterations, each testing the predicate, against the
-    # predicate alone.
+    # The correction again on one input: equal bits (its graph, which takes
+    # no step here, is held taking steps in (d)).
+    again = ms.to_numpy(loop_closing.correct_loop(maps["loop_in"], int(z["loop_query_kf"]), int(z["loop_loop_kf"]),
+                                                  t(z["loop_S12"]), t(z["loop_covis"]), cam=cam))
+    first = ms.to_numpy(got)
+    rec["repeat_correct_loop"] = {k: tool("torch_repeat_probe").equal_bits(first[k], again[k]) for k in first}
+    if not all(rec["repeat_correct_loop"].values()):
+        bad.append("correct_loop: two runs of one input differ in "
+                   f"{[k for k, eq in rec['repeat_correct_loop'].items() if not eq]}")
+    # (d) the graph where it takes steps (its times reported, not gated; its
+    # two timed solves must give equal bits): the correction's problem with every free
+    # vertex moved ~0.01 off, so no residual sits at round-off and the
+    # reference's predicate is false at the input; 20 LM iterations, each
+    # testing the predicate, against the predicate alone.
     prob = graphs[0]
     xi = 0.01 * torch.randn(prob.poses.shape[0], 7, generator=torch.Generator().manual_seed(0))
     xi[:, 6] = 0.0
@@ -2042,11 +2228,17 @@ def run_room_stages_phase(dev) -> dict:
     def predicate():
         return pose_graph.reference_tangent_overflow(stepping.poses, prob.edge_i, prob.edge_j, prob.edge_meas).any()
 
+    solved = []
+
     graph_steps = {"vertices": int(prob.vertex_valid.sum()), "edges": int(prob.edge_valid.sum()),
              "edge_slots": prob.edge_i.shape[0], "predicate_at_input": bool(predicate()),
              "predicate_ms": timed_ms(predicate, reps=5),
-             "lm20_ms": timed_ms(lambda: pose_graph.optimize_pose_graph(stepping, n_iters=20), reps=2)}
+             "lm20_ms": timed_ms(lambda: solved.append(pose_graph.optimize_pose_graph(stepping, n_iters=20)), reps=2)}
     graph_steps["predicate_share"] = 20 * graph_steps["predicate_ms"] / graph_steps["lm20_ms"]
+    graph_steps["repeat_equal_bits"] = bool(torch.equal(solved[0], solved[1]))
+    graph_steps["took_steps"] = not bool(torch.equal(solved[0], stepping.poses))
+    if not (graph_steps["repeat_equal_bits"] and graph_steps["took_steps"]):
+        bad.append(f"the pose graph taking steps: two solves of one input differ or took no step — {graph_steps}")
     rec["pose_graph_steps"] = graph_steps
 
     rec["seconds"] = time.perf_counter() - t0
@@ -2235,6 +2427,7 @@ def run_global_ba_phase(dev, loop: dict) -> dict:
             again = global_ba.distributed_bundle_adjust(cam, prob, group)
         finally:
             torch.cuda.set_sync_debug_mode("default")
+        rec["repeat_distributed"] = same_bits(res, again)
         res = global_ba.gather_result(res, len(ids), group)
     rec["ms_per_lm_iter"] = rec["ms"] / 10
     rec["collectives_per_lm_iter"] = {n: counts[n] / 10 for n in names} | {"total": sum(counts.values()) / 10}
@@ -2246,6 +2439,7 @@ def run_global_ba_phase(dev, loop: dict) -> dict:
     torch.cuda.synchronize()
     rec["schur_ms"] = (time.perf_counter() - t0) * 1e3
     rec["schur_peak_memory_mib"] = torch.cuda.max_memory_allocated() / 2**20 - base_mib
+    rec["repeat_schur"] = same_bits(schur, local_ba.bundle_adjust(cam, prob))
     # The converged yardstick solves the distributed solve's problem: the
     # Schur's pruning after its first stage changes the problem, and on a
     # map with a few gross outliers its optimum (ROADMAP C7).
@@ -2278,6 +2472,9 @@ def run_global_ba_phase(dev, loop: dict) -> dict:
         bad.append(f"cost rose from {rec['initial_cost']} to {rec['final_cost']}")
     if not rec["final_cost"] <= GBA_COST_FACTOR * rec["schur_cost"]:
         bad.append(f"cost {rec['final_cost']} > {GBA_COST_FACTOR}× the Schur solver's {rec['schur_cost']}")
+    for k in ("repeat_schur", "repeat_distributed"):
+        if not all(rec[k].values()):
+            bad.append(f"{k}: two solves of one map differ in {[f for f, eq in rec[k].items() if not eq]}")
     conv_rec = rec["converged"]
     # ROADMAP C4: converged global BA against the map it was given.
     rec["converged_ratio"] = {k: conv_rec[f"{k}_keyframe_ate_m"] / rec["initial_keyframe_ate_m"]
@@ -2290,6 +2487,93 @@ def run_global_ba_phase(dev, loop: dict) -> dict:
                    f"converged Schur solver's {conv_rec['schur_keyframe_ate_m']} m")
     if bad:
         raise AssertionError("global_ba phase outside its gates: " + "; ".join(bad) + f" — {rec}")
+    return rec
+
+
+def tool(name: str):
+    """A module of tools/ (the port's measurement tools), imported by name."""
+    import importlib
+
+    if os.path.join(REPO, "tools") not in sys.path:
+        sys.path.insert(0, os.path.join(REPO, "tools"))
+    return importlib.import_module(name)
+
+
+def same_bits(a, b) -> dict:
+    """Field → whether two BAResults hold equal bits (poses, points,
+    obs_active, cost)."""
+    import torch
+
+    return {k: bool(torch.equal(getattr(a, k), getattr(b, k))) for k in ("poses", "points", "obs_active", "cost")}
+
+
+def run_ba_scaling_phase() -> dict:
+    """Phase 17: tools/torch_ba_scaling_bench.py at the reference tool's
+    defaults on the card's NCCL group of one, its converged cost against the
+    same problem solved by the port on the CPU (gloo, world size 1). Raises
+    on any gate."""
+    import numpy as np
+    import torch
+
+    bench = tool("torch_ba_scaling_bench")
+
+    from gf_orb_slam_tpu_torch.geometry.camera import EUROC_CAM
+    from gf_orb_slam_tpu_torch.parallel import global_ba, launch
+    from gf_orb_slam_tpu_torch.solvers.local_ba import BAProblem
+
+    args = bench.parse_args([])
+    t0 = time.perf_counter()
+    out = bench.main([])
+    card_s = time.perf_counter() - t0
+    row = out["rows"][0]
+    arrays = bench.make_problem(args.cams, args.points, args.obs_per_cam)
+    prob = BAProblem(**{k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in arrays.items()})
+    t0 = time.perf_counter()
+    with launch.gloo_group() as group:
+        cpu = global_ba.distributed_bundle_adjust(EUROC_CAM, prob, group, n_lm_iters=args.lm_iters,
+                                                  n_pcg_iters=args.pcg_iters)
+    rec = {"phase": "ba_scaling", "entry": "tools/torch_ba_scaling_bench.py (parallel.global_ba."
+           "distributed_bundle_adjust)", "cams": args.cams, "points": args.points, "obs_per_cam": args.obs_per_cam,
+           "lm_iters": args.lm_iters, "pcg_iters": args.pcg_iters, "world_size": row["d"],
+           "skipped_world_sizes": out["skipped_sizes"], "ms_per_lm_iter": row["ms_per_lm_iter"],
+           "device_ms_per_lm_iter": row["device_ms_per_lm_iter"], "peak_mib": row["peak_mib"], "cost": row["cost"],
+           "cpu_cost": float(cpu.cost), "card_seconds": card_s, "cpu_seconds": time.perf_counter() - t0,
+           "lines": out["lines"]}
+    rec["cost_rel_diff"] = abs(rec["cost"] - rec["cpu_cost"]) / abs(rec["cpu_cost"])
+    if not (math.isfinite(rec["cost"]) and rec["cost_rel_diff"] <= SCALING_COST_TOL):
+        raise AssertionError(f"ba_scaling phase: cost {rec['cost']} on the card against {rec['cpu_cost']} on the CPU "
+                             f"(> {SCALING_COST_TOL:.0%} apart) — {rec}")
+    return rec
+
+
+def run_repeat_phase(dev, voc) -> dict:
+    """Phase 17b: bench-system's first REPEAT_FRAMES frames twice on the
+    card; every per-frame pose and obs_point row and the final map equal
+    bit for bit. Raises otherwise."""
+    import torch
+
+    from gf_orb_slam_tpu_torch.kernels import hamming
+
+    meta, _ = load_place_fixture("bench")
+    cam, ts, _, frames = bench_sequence(dev, meta, REPEAT_FRAMES)
+    probe = tool("torch_repeat_probe")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    runs, seconds = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        runs.append(probe.bench_system_outputs(cam, ts[:REPEAT_FRAMES], frames[:REPEAT_FRAMES], voc, dev))
+        seconds.append(time.perf_counter() - t0)
+    equal = {k: probe.equal_bits(runs[0][k], runs[1][k]) for k in runs[0]}
+    rec = {"phase": "repeat", "entry": "pipeline.system.SlamSystem.process", "frames": REPEAT_FRAMES,
+           "seconds": seconds, "equal_bits": equal,
+           "tracked_frames": int((~torch.isnan(torch.from_numpy(runs[0]["frame_poses"][:, 0]))).sum()),
+           "keyframes": int(runs[0]["map_kf_valid"].sum()),
+           "hamming_launches": hamming.LAUNCHES,
+           "hamming_launches_by_shape": {f"{nq}x{nt}": n for (nq, nt), n in sorted(hamming.LAUNCHES_BY_SHAPE.items())}}
+    if not all(equal.values()) or rec["keyframes"] < 3:
+        raise AssertionError(f"repeat phase: two runs of one input differ in {[k for k, eq in equal.items() if not eq]}"
+                             f" — {rec}")
     return rec
 
 

@@ -33,6 +33,7 @@ import torch.distributed as dist
 
 from gf_orb_slam_tpu_torch.geometry import linalg, se3
 from gf_orb_slam_tpu_torch.geometry.camera import CameraModel
+from gf_orb_slam_tpu_torch.ops import scatter
 from gf_orb_slam_tpu_torch.solvers.local_ba import (HUBER2, BAProblem, BAResult, _cost, _cost_from_residuals,
                                                     _edge_terms, _robust_w)
 
@@ -46,13 +47,18 @@ def _local_blocks(cam, poses, points, obs_uv, obs_point, obs_w, fixed, active):
     return r, Jpose, Jpt, w, w_pose, ok
 
 
-def _scatter_point(vals, lp, ok, P_cap: int):
-    """Scatter-add per-edge (C, N, ...) values into (P_cap, ...); edges
-    that are not ok land in a dropped extra row."""
-    drop = torch.where(ok, lp, P_cap).reshape(-1)
-    flat = vals.reshape((-1,) + vals.shape[2:])
-    out = torch.zeros((P_cap + 1,) + vals.shape[2:], dtype=vals.dtype, device=vals.device)
-    return out.index_add_(0, drop, flat)[:P_cap]
+def _point_plan(obs_point, active, P_cap: int) -> scatter.SumPlan:
+    """The plan of summing per-edge values onto their points (a point takes
+    one edge per keyframe that sees it), fixed for a solve: edges that are
+    not active or observe no point are dropped."""
+    ok = active & (obs_point >= 0)
+    return scatter.sum_plan(torch.where(ok, obs_point.long(), P_cap).reshape(-1), P_cap)
+
+
+def _scatter_point(vals, plan):
+    """Per-edge (C, N, ...) values summed onto (P_cap, ...) by `plan`
+    (`_point_plan`), each point's edges in a fixed order."""
+    return scatter.planned_sum(plan, vals.reshape((-1,) + vals.shape[2:]))
 
 
 def _reduce_scatter(x, group, world: int):
@@ -74,7 +80,7 @@ def _all_sum(x, group):
     return x
 
 
-def _lm_step(cam: CameraModel, poses, points, fixed, point_valid, obs_uv, obs_point, obs_w, active, lam,
+def _lm_step(cam: CameraModel, poses, points, fixed, point_valid, obs_uv, obs_point, obs_w, active, plan, lam,
              n_pcg_iters: int, lam_pt: float, group, world: int, rank: int):
     """One LM iteration on this rank's keyframe rows: (poses, points, λ,
     accepted cost), every one but the poses replicated."""
@@ -95,8 +101,8 @@ def _lm_step(cam: CameraModel, poses, points, fixed, point_valid, obs_uv, obs_po
     # Point blocks: each rank owns, and inverts, its P/d slice of the sums.
     V_loc = torch.einsum("cnri,cn,cnrj->cnij", Jpt, w, Jpt)
     gp_loc = torch.einsum("cnri,cn,cnr->cni", Jpt, w, r)
-    V_s = _reduce_scatter(_scatter_point(V_loc, lp, ok, P_cap), group, world)      # (P/d, 3, 3)
-    gp_s = _reduce_scatter(_scatter_point(gp_loc, lp, ok, P_cap), group, world)    # (P/d, 3)
+    V_s = _reduce_scatter(_scatter_point(V_loc, plan), group, world)      # (P/d, 3, 3)
+    gp_s = _reduce_scatter(_scatter_point(gp_loc, plan), group, world)    # (P/d, 3)
     pv_s = point_valid[rank * P_loc : (rank + 1) * P_loc]
 
     V_d = (V_s + (lam * torch.clamp(torch.diagonal(V_s, dim1=-2, dim2=-1), min=1e-6))[:, :, None] * eye3
@@ -118,7 +124,7 @@ def _lm_step(cam: CameraModel, poses, points, fixed, point_valid, obs_uv, obs_po
     def point_accum_scatter(v):
         """a_p = Σ_d W_pdᵀ v_d: scatter, then this rank's slice of the sum."""
         contrib = torch.einsum("cnij,ci->cnj", W_edge, v)
-        return _reduce_scatter(_scatter_point(contrib, lp, ok, P_cap), group, world)
+        return _reduce_scatter(_scatter_point(contrib, plan), group, world)
 
     okf = ok[..., None].to(dt)
 
@@ -219,11 +225,12 @@ def distributed_bundle_adjust(
     point_valid = _pad_rows(prob.point_valid, pad_p, False)
 
     active = (obs_point >= 0) & (obs_w > 0)
+    plan = _point_plan(obs_point, active, points.shape[0])
     lam = torch.full((), 1e-4, dtype=poses.dtype, device=poses.device)
     cost = torch.zeros((), dtype=poses.dtype, device=poses.device)
     for _ in range(n_lm_iters):
         poses, points, lam, cost = _lm_step(cam, poses, points, fixed, point_valid, obs_uv, obs_point, obs_w,
-                                            active, lam, n_pcg_iters, lam_pt, group, world, rank)
+                                            active, plan, lam, n_pcg_iters, lam_pt, group, world, rank)
     # The final χ² classification (rank-local rows).
     r, _, _, ok = _edge_terms(cam, poses, points, obs_uv, obs_point, active)
     chi2 = torch.sum(r * r, dim=-1) * obs_w

@@ -80,6 +80,17 @@ def render_sequence(cam: CameraModel, n_frames: int, scene_seed: int = 0, device
     `render_device` renders elsewhere (tools/torch_card_vs_cpu.py compares
     the two)."""
     device = resolve_device(device)
+    ts, poses_gt, frames = render_frames(cam, n_frames, scene_seed, scene, render_device=render_device)
+    return ts, poses_gt, frames.to(device).to(torch.float32)
+
+
+def render_frames(cam: CameraModel, n_frames: int, scene_seed: int = 0, scene: str = "planes", start: int = 0,
+                  stop: int | None = None, render_device="cpu"):
+    """(timestamps (F,), ground-truth T_cw poses (F, 7), frames [start,
+    stop) of the F-frame sequence as uint8 (n, H, W) on `render_device`):
+    render_sequence's images, a share at a time, so that several processes
+    can render one sequence. Each frame is rendered on its own, so a share
+    holds the same bits as the whole sequence's frames."""
     if scene == "room":
         world = synthetic.make_room_scene(seed=scene_seed, device=render_device)
         ts, poses_gt = synthetic.circuit_trajectory(n_frames, fps=cam.fps, radius=4.0, revs=circuit_revs(n_frames))
@@ -88,11 +99,12 @@ def render_sequence(cam: CameraModel, n_frames: int, scene_seed: int = 0, device
         world = synthetic.make_scene(seed=scene_seed, device=render_device)
         ts, poses_gt = synthetic.trajectory(n_frames, fps=cam.fps)
         render = synthetic.render
-    frames = torch.stack([
-        torch.clamp(torch.round(render(world, cam, torch.from_numpy(poses_gt[i]))), 0, 255).to(torch.uint8)
-        for i in range(n_frames)
-    ])
-    return ts, poses_gt, frames.to(device).to(torch.float32)
+    stop = n_frames if stop is None else stop
+    frames = [torch.clamp(torch.round(render(world, cam, torch.from_numpy(poses_gt[i]))), 0, 255).to(torch.uint8)
+              for i in range(start, stop)]
+    frames = torch.stack(frames) if frames else torch.empty((0, cam.height, cam.width), dtype=torch.uint8,
+                                                             device=render_device)
+    return ts, poses_gt, frames
 
 
 def camera_centers(poses_cw) -> np.ndarray:

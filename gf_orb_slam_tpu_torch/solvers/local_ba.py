@@ -6,8 +6,9 @@ Problem layout (fixed shapes, mask-gated):
   points     (P, 3)  — world points
   obs_uv     (C, N, 2), obs_point (C, N) local point ids (−1 = none),
   obs_w      (C, N)  — per-observation information weight (1/σ²; 0 disables)
-At most one observation per (camera, point) pair, so each (point, camera)
-row of the flat reduction table receives one edge.
+Normally one observation per (camera, point) pair; a keyframe that holds
+one point more than once (after a fuse merge, as in the reference) adds
+each edge.
 
 Two stages: iters_stage1 LM iterations → χ² outlier pruning (5.991) →
 iters_stage2 more. The reference's `lax.scan` is a Python loop here; the LM
@@ -25,6 +26,7 @@ import torch
 from gf_orb_slam_tpu_torch.geometry import linalg, se3
 from gf_orb_slam_tpu_torch.geometry.camera import CameraModel, project, projection_jacobian
 from gf_orb_slam_tpu_torch.geometry.quat import q2r, qnormalize
+from gf_orb_slam_tpu_torch.ops import scatter
 
 HUBER2 = 5.991
 
@@ -86,17 +88,25 @@ def _cost(cam, poses, points, obs_uv, obs_point, obs_w, active):
     return _cost_from_residuals(obs_uv - uv_hat, obs_w, ok)
 
 
-def _lm_step(cam: CameraModel, prob: BAProblem, active, lam):
-    """One damped Schur-reduced Gauss–Newton step. Returns (dξ (C, 6),
-    dX (P, 3), Huber cost at the current state)."""
+def _edge_plan(obs_point, P: int) -> scatter.SumPlan:
+    """The plan of `_lm_step`'s scatter-add of every edge onto row p·C + c
+    of its (point, camera) table, fixed for a solve; slots without a point
+    are dropped."""
+    C = obs_point.shape[0]
+    c_iota = torch.arange(C, device=obs_point.device)[:, None]
+    return scatter.sum_plan(torch.where(obs_point >= 0, obs_point.long() * C + c_iota, P * C).reshape(-1), P * C)
+
+
+def _lm_step(cam: CameraModel, prob: BAProblem, active, lam, plan: scatter.SumPlan | None = None):
+    """One damped Schur-reduced Gauss–Newton step (`plan`: `_edge_plan` of
+    the problem, made here when not given). Returns (dξ (C, 6), dX (P, 3),
+    Huber cost at the current state)."""
     C, N = prob.obs_point.shape
     P = prob.points.shape[0]
     dev, dt = prob.points.device, prob.points.dtype
     r, Jpose, Jpt, ok = _edge_terms(cam, prob.poses, prob.points, prob.obs_uv, prob.obs_point, active)
     w, chi2 = _robust_w(r, prob.obs_w, ok)  # fixed cameras keep weight: they still constrain points
     cost_here = torch.sum(torch.where(ok, _rho(chi2), 0.0))
-
-    lp = torch.clamp(prob.obs_point, min=0).long()
 
     # Camera blocks U (C, 6, 6) and gradient g_c (C, 6).
     U = torch.einsum("cnri,cn,cnrj->cij", Jpose, w, Jpose)
@@ -109,14 +119,14 @@ def _lm_step(cam: CameraModel, prob: BAProblem, active, lam):
     W_edge = torch.where(prob.fixed[:, None, None, None], 0.0, W_edge)
 
     # One flat scatter-add of each edge's 30 floats [V (9) | g_p (3) | W (18)]
-    # into row p·C + c of a (P·C, 30) table. The (camera, point) pairs are
-    # unique, so every row takes at most one edge; index_add_ is atomic on
-    # CUDA, and with one edge per row its sums are the edge values.
+    # into row p·C + c of a (P·C, 30) table. A row takes one edge, or more
+    # where a keyframe holds one point more than once (the reference's
+    # duplicate BA edges: three or more on real maps), summed in a fixed
+    # order (ops/scatter.py); an edge that is not ok adds 0.
     payload = torch.cat([Vscat.reshape(C, N, 9), gp_scat, W_edge.reshape(C, N, 18)], dim=-1)
-    c_iota = torch.arange(C, device=dev)[:, None]
-    flat = torch.where(ok, lp * C + c_iota, P * C).reshape(-1)
-    M = torch.zeros((P * C + 1, 30), dtype=dt, device=dev)
-    M = M.index_add_(0, flat, payload.reshape(-1, 30))[: P * C].reshape(P, C, 30)
+    payload = torch.where(ok[..., None], payload, 0.0)
+    plan = _edge_plan(prob.obs_point, P) if plan is None else plan
+    M = scatter.planned_sum(plan, payload.reshape(-1, 30)).reshape(P, C, 30)
     V = M[:, :, :9].sum(dim=1).reshape(P, 3, 3)
     g_p = M[:, :, 9:12].sum(dim=1)
     T = M[:, :, 12:30].reshape(P, C, 6, 3)
@@ -168,11 +178,13 @@ def bundle_adjust(
     """Two-stage robust BA (LocalBundleAdjustment's 5-then-10 schedule with
     outlier pruning between the stages)."""
 
+    plan = _edge_plan(prob.obs_point, prob.points.shape[0])
+
     def run(poses, points, active, iters):
         lam = torch.full((), 1e-4, dtype=prob.poses.dtype, device=prob.poses.device)
         for _ in range(iters):
             p = prob._replace(poses=poses, points=points)
-            dc, dp, c_old = _lm_step(cam, p, active, lam)
+            dc, dp, c_old = _lm_step(cam, p, active, lam, plan)
             new_poses, new_points = _apply(p, dc, dp)
             c_new = _cost(cam, new_poses, new_points, prob.obs_uv, prob.obs_point, prob.obs_w, active)
             good = c_new < c_old

@@ -7,8 +7,9 @@ e_ij = log(S_ji_meas ∘ S_iw ∘ S_wj) ∈ R⁷. Jacobians come from forward-mo
 autodiff of the exact residual batched over the edges
 (`torch.func.vmap(torch.func.jacfwd(...))`, the reference's
 `vmap(jacfwd(...))`), and the dense (7K, 7K) normal equations are assembled
-by flat scatter-adds (`index_add_`, whose float sums on CUDA run in no fixed
-order) and solved by `solve_ex`. Steps are accepted on the device; the one
+by flat scatter-adds whose sums run in a fixed order (`ops/scatter.py`;
+a keyframe's rows take every edge that touches it) and solved by
+`solve_ex`. Steps are accepted on the device; the one
 host read is whether the reference would reject every step (below).
 """
 
@@ -19,6 +20,7 @@ from typing import NamedTuple
 import torch
 
 from gf_orb_slam_tpu_torch.geometry import sim3 as s3
+from gf_orb_slam_tpu_torch.ops import scatter
 
 
 class PoseGraphProblem(NamedTuple):
@@ -172,8 +174,11 @@ def optimize_pose_graph(prob: PoseGraphProblem, n_iters: int = 20) -> torch.Tens
     dev = prob.poses.device
     ei, ej = prob.edge_i.long(), prob.edge_j.long()
     zeros = torch.zeros((E, 7), dtype=prob.poses.dtype, device=dev)
-    idx_ii, idx_jj = _block_index(ei, ei, K).reshape(-1), _block_index(ej, ej, K).reshape(-1)
-    idx_ij, idx_ji = _block_index(ei, ej, K).reshape(-1), _block_index(ej, ei, K).reshape(-1)
+    # H's four blocks of every edge and g's two rows, each one flat
+    # fixed-order scatter-add planned once for the solve.
+    plan_h = scatter.sum_plan(torch.cat([_block_index(ei, ei, K), _block_index(ej, ej, K), _block_index(ei, ej, K),
+                                         _block_index(ej, ei, K)]).reshape(-1), 49 * K * K)
+    plan_g = scatter.sum_plan(torch.cat([ei, ej]), K)
     w = torch.where(prob.edge_valid, prob.edge_weight, 0.0)
     free = prob.vertex_valid & ~prob.fixed
     f7 = free.to(prob.poses.dtype).repeat_interleave(7)
@@ -200,10 +205,8 @@ def optimize_pose_graph(prob: PoseGraphProblem, n_iters: int = 20) -> torch.Tens
         Hij = torch.einsum("eri,e,erj->eij", Ji, w, Jj)
         gi = torch.einsum("eri,e,er->ei", Ji, w, r)
         gj = torch.einsum("eri,e,er->ei", Jj, w, r)
-        H = torch.zeros(7 * K * 7 * K, dtype=poses.dtype, device=dev)
-        H.index_add_(0, idx_ii, Hii.reshape(-1)).index_add_(0, idx_jj, Hjj.reshape(-1))
-        H.index_add_(0, idx_ij, Hij.reshape(-1)).index_add_(0, idx_ji, Hij.mT.reshape(-1))
-        g = torch.zeros((K, 7), dtype=poses.dtype, device=dev).index_add_(0, ei, gi).index_add_(0, ej, gj)
+        H = scatter.planned_sum(plan_h, torch.cat([Hii, Hjj, Hij, Hij.mT]).reshape(-1))
+        g = scatter.planned_sum(plan_g, torch.cat([gi, gj]))
 
         # Freeze fixed and invalid vertices: their rows and columns vanish
         # and their diagonal is 1; free vertices get the LM damping.

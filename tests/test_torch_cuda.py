@@ -7,8 +7,9 @@ stages (in every GF mode), of the batched logdet, of the random modes'
 draws, of the keyframe insertion, of the BoW registration and of the
 relocalization, and the one host read of a keyframe-slab compaction; the
 patch-matmul descriptors, BoxLOG and the prior-pose
-initializer on the card against the CPU, and the entry step. They skip
-where there is no GPU.
+initializer on the card against the CPU, the entry step, and the
+fixed-order float sums (each repaired solver called twice gives equal
+bits). They skip where there is no GPU.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only the port's dependencies:
@@ -582,3 +583,85 @@ def test_compaction_reads_the_host_once(cuda):
     assert sum("synchronizing CUDA operation" in str(w.message) for w in caught) == 1
     assert system.n_kf == 4 and system.compactions == [(0, 4)]
     assert bool(system.map.kf_valid[:4].all()) and bool(system.bow_db.valid[:4].all())
+
+
+def _repeat_problem(cuda):
+    """launch.dryrun_problem(4) (8 keyframes, 96 points, most points seen by
+    every keyframe) with one keyframe holding a point three times, on the
+    card: rows that take three or more addends in both BA solvers."""
+    from gf_orb_slam_tpu_torch.parallel import launch
+    from gf_orb_slam_tpu_torch.solvers.local_ba import BAProblem
+
+    arrays = launch.dryrun_problem(4)
+    for k in ("obs_point", "obs_uv", "obs_w"):
+        arrays[k][3, 1:3] = arrays[k][3, 0]
+    return BAProblem(**{k: torch.from_numpy(v).to(cuda) for k, v in arrays.items()})
+
+
+def _random_graph(cuda, K=30):
+    """A complete essential graph of K Sim3 vertices, moved ~0.01 off the
+    measurements so that it takes steps: every vertex takes K − 1 edges."""
+    from gf_orb_slam_tpu_torch.geometry import sim3 as s3
+    from gf_orb_slam_tpu_torch.solvers import pose_graph
+
+    g = torch.Generator().manual_seed(0)
+    poses = s3.exp(0.3 * torch.randn(K, 7, generator=g))
+    iu, ju = torch.triu_indices(K, K, 1)
+    xi = 0.01 * torch.randn(K, 7, generator=g)
+    xi[:, 6] = 0
+    prob = pose_graph.PoseGraphProblem(
+        poses=s3.compose(s3.exp(xi), poses), fixed=torch.arange(K) == 0, vertex_valid=torch.ones(K, dtype=torch.bool),
+        edge_i=iu.int(), edge_j=ju.int(), edge_meas=pose_graph.relative_sim3(poses, iu, ju),
+        edge_valid=torch.ones(iu.shape[0], dtype=torch.bool), edge_weight=torch.ones(iu.shape[0]))
+    return pose_graph.PoseGraphProblem(*(x.to(cuda) for x in prob))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tail", [(), (3, 3), (30,)], ids=["flat", "block3x3", "row30"])
+def test_index_sum_repeats_on_the_card(cuda, tail):
+    """The fixed-order scatter-add gives equal bits on two calls (rows of
+    0 to ~2,000 addends), within float32 rounding of a float64 sum, and
+    the CPU's bits."""
+    from gf_orb_slam_tpu_torch.ops import scatter
+
+    def index_sum(index, src, n_rows):
+        return scatter.planned_sum(scatter.sum_plan(index, n_rows), src)
+
+    rng = np.random.default_rng(0)
+    n, rows = 200_000, 100
+    index = torch.from_numpy(rng.integers(0, rows - 1, n)).to(cuda)  # the last row takes none
+    src = torch.from_numpy(rng.normal(size=(n,) + tail).astype(np.float32)).to(cuda)
+    a = index_sum(index, src, rows)
+    b = index_sum(index, src, rows)
+    assert torch.equal(a, b)
+    want = torch.zeros((rows,) + tail, dtype=torch.float64).index_add_(0, index.cpu(), src.cpu().double())
+    torch.testing.assert_close(a.cpu().double(), want, rtol=0, atol=1e-3)
+    assert (a[-1] == 0).all()
+    # The CPU's index order, so the CPU's bits.
+    assert torch.equal(a.cpu(), index_sum(index.cpu(), src.cpu(), rows))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["schur", "distributed", "pose_graph"])
+def test_repaired_solvers_repeat_on_the_card(cuda, solver):
+    """Each function whose float sums were made fixed-order, called twice on
+    one input on the card, gives equal bits."""
+    from gf_orb_slam_tpu_torch.geometry.camera import EUROC_CAM
+    from gf_orb_slam_tpu_torch.parallel import global_ba, launch
+    from gf_orb_slam_tpu_torch.solvers import local_ba, pose_graph
+
+    if solver == "pose_graph":
+        prob = _random_graph(cuda)
+        a, b = (pose_graph.optimize_pose_graph(prob) for _ in range(2))
+        assert not torch.equal(a, prob.poses)  # the graph took steps
+        assert torch.equal(a, b)
+        return
+    prob = _repeat_problem(cuda)
+    if solver == "schur":
+        a, b = (local_ba.bundle_adjust(EUROC_CAM, prob) for _ in range(2))
+    else:
+        with launch.nccl_group() as group:
+            a, b = (global_ba.distributed_bundle_adjust(EUROC_CAM, prob, group) for _ in range(2))
+    for k in ("poses", "points", "obs_active", "cost"):
+        assert torch.equal(getattr(a, k), getattr(b, k)), k
+    assert torch.isfinite(a.cost) and not torch.equal(a.poses, prob.poses)

@@ -374,3 +374,25 @@ def test_cli_load_map_resumes(seq_run, dumped):
     run_slam.main(argv + ["--load-map", str(out / "map.npz"), "--max-frames", "3", "--out", str(out / "resumed")])
     tracked = open(out / "resumed_AllFrameTrajectory.txt").read().splitlines()
     assert len(tracked) == 3  # relocalized on the first frame, tracked on the next two
+
+
+@pytest.mark.parametrize("scene,cam", [("planes", run_slam.BENCH_CAMERA), ("room", run_slam.EUROC_CAM)])
+def test_render_frames_shares_equal_the_whole_sequence(scene, cam):
+    """Frames [start, stop) rendered on their own, at one torch thread (as
+    chip_smoke.py's render processes render them), hold the bits of the same
+    frames of render_sequence's whole sequence at the default thread count;
+    the timestamps and ground truth are the whole sequence's either way."""
+    n = 4
+    ts, poses, whole = run_slam.render_sequence(cam, n, 0, "cpu", scene=scene)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        shares = [run_slam.render_frames(cam, n, 0, scene, a, b) for a, b in ((0, 1), (1, 3), (3, 4), (4, 4))]
+    finally:
+        torch.set_num_threads(threads)
+    for s_ts, s_poses, frames in shares:
+        np.testing.assert_array_equal(s_ts, ts)
+        np.testing.assert_array_equal(s_poses, poses)
+        assert frames.dtype == torch.uint8
+    assert shares[-1][2].shape == (0, cam.height, cam.width)
+    assert torch.equal(torch.cat([f for _, _, f in shares]).to(torch.float32), whole)

@@ -48,12 +48,13 @@ def test_port_imports_without_jax():
     for mod in ("gf.active_matching", "gf.selection", "geometry.pwls", "pipeline.tracking", "parallel.global_ba",
                 "parallel.launch", "io_utils.settings", "io_utils.datasets", "io_utils.images", "io_utils.prefetch",
                 "io_utils.stage_probe", "io_utils.loop_eval", "io_utils.reloc_eval", "io_utils.viz", "ops.boxlog",
-                "io_utils.map_delta",
+                "io_utils.map_delta", "ops.scatter",
                 "entry", "bench", "batch_sweep"):
         assert f"gf_orb_slam_tpu_torch.{mod}" in names, mod
 
 
-@pytest.mark.parametrize("script", ["chip_smoke.py", "tools/torch_loop_recall.py"])
+@pytest.mark.parametrize("script", ["chip_smoke.py", "tools/torch_loop_recall.py", "tools/torch_ba_scaling_bench.py",
+                                    "tools/torch_repeat_probe.py", "tools/torch_repeat_cost.py"])
 def test_port_scripts_never_import_jax(script):
     """The scripts that drive only the port name neither JAX nor the JAX
     package in any import statement, module-level or inside a function."""
